@@ -1,0 +1,177 @@
+"""The port's sweeps, Anderson direction and one SuperMann iteration
+against the JAX package (float64, CPU).
+
+SuperMann trajectories are chaotic (discrete K1/K2/backtracking decisions
+amplify reduction-order noise), so the iterate is compared for one
+iteration only; test_torch_solver.py compares whole solves by their
+solutions."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from spock_tpu.algorithms import anderson as janderson
+from spock_tpu.algorithms import common as jcommon
+from spock_tpu.algorithms import supermann as jsp
+from spock_tpu.solver import zero_dual as jzero_dual
+from spock_tpu.solver import zero_primal as jzero_primal
+from spock_tpu_torch.algorithms import anderson, common
+from spock_tpu_torch.algorithms import supermann as sp
+from tests.torch_parity import (
+    assert_close, jax_problem, port_data, rand_pair, to_jax, to_port)
+
+torch.set_num_threads(1)
+
+GAMMA, SIGMA = 0.21, 0.37
+B = 4
+SP_TOL = 1e-6
+
+
+@pytest.fixture(scope="module")
+def problem():
+    _, jdata, jmeta = jax_problem("server_heat")
+    pdata, pmeta = port_data(jdata, jmeta)
+    return jdata, jmeta, pdata, pmeta
+
+
+@pytest.fixture(scope="module")
+def jax_body(problem):
+    jdata, jmeta, _, _ = problem
+    return jax.jit(jsp.sp_body(jdata, jmeta, jnp.asarray(SP_TOL)))
+
+
+def test_cp_sweep_metric_matches_jax(problem):
+    jdata, jmeta, pdata, pmeta = problem
+    rng = np.random.default_rng(0)
+    z, v = rand_pair(rng, jmeta, batch=(B,))
+    x0 = rng.standard_normal((B, jmeta.nx))
+    ref = jax.jit(jcommon.cp_sweep_metric_ref, static_argnums=1)(
+        jdata, jmeta, to_jax(z), to_jax(v), GAMMA, SIGMA, jnp.asarray(x0))
+    got = common.cp_sweep_metric(pdata, pmeta, to_port(z), to_port(v), GAMMA,
+                                 SIGMA, to_port(x0))
+    assert_close(got, ref, atol=1e-12)
+
+
+def test_candidate_sweep_matches_jax(problem):
+    jdata, jmeta, pdata, pmeta = problem
+    rng = np.random.default_rng(1)
+    z, v = rand_pair(rng, jmeta, batch=(B,))
+    dz, dv = rand_pair(rng, jmeta, batch=(B,))
+    x0 = rng.standard_normal((B, jmeta.nx))
+    tau = rng.random(B)
+    ref = jax.jit(jcommon.candidate_sweep_ref, static_argnums=1)(
+        jdata, jmeta, to_jax(z), to_jax(v), to_jax(dz), to_jax(dv),
+        jnp.asarray(tau), GAMMA, SIGMA, jnp.asarray(x0))
+    got = common.candidate_sweep(
+        pdata, pmeta, to_port(z), to_port(v), to_port(dz), to_port(dv),
+        to_port(tau), GAMMA, SIGMA, to_port(x0))
+    assert_close(got, ref, atol=1e-12)
+
+
+def test_solve3_matches_jax():
+    rng = np.random.default_rng(2)
+    M = rng.standard_normal((5, 3, 3))
+    A = M @ np.swapaxes(M, -1, -2) + 0.1 * np.eye(3)
+    b = rng.standard_normal((5, 3))
+    got = anderson._solve3(torch.tensor(A), torch.tensor(b))
+    ref = janderson._solve3(jnp.asarray(A), jnp.asarray(b))
+    assert_close(got, ref, atol=1e-12)
+    np.testing.assert_allclose(
+        got.numpy(), np.linalg.solve(A, b[..., None])[..., 0], atol=1e-10)
+
+
+def test_direction_struct_matches_jax(problem):
+    """Newest-first histories with a mix of lane ages (stale rows masked)."""
+    _, jmeta, _, _ = problem
+    rng = np.random.default_rng(3)
+    MR = rand_pair(rng, jmeta, batch=(B, 3))
+    MP = rand_pair(rng, jmeta, batch=(B, 3))
+    r = rand_pair(rng, jmeta, batch=(B,))
+    niter = np.array([0, 1, 2, 7], np.int32)
+    ref = janderson.direction_struct(to_jax(MR), to_jax(MP), to_jax(r),
+                                     jnp.asarray(niter))
+    got = anderson.direction_struct(to_port(MR), to_port(MP), to_port(r),
+                                    to_port(niter))
+    assert_close(got, ref, atol=1e-12)
+    new = rand_pair(rng, jmeta, batch=(B,))
+    assert_close(anderson.hist_insert(to_port(MR), to_port(new)),
+                 janderson.hist_insert(to_jax(MR), to_jax(new)), atol=0.0)
+
+
+def _random_carry(rng, jmeta, cache_valid):
+    """A JAX SPCarry with numpy-made values: lanes of different ages, one
+    lane done, random histories."""
+    zpair = lambda batch=(B,): rand_pair(rng, jmeta, batch=batch)  # noqa: E731
+    z, v = zpair()
+    zbar_c, vbar_c = zpair()
+    c = jsp.SPCarry(
+        x0=0.5 * rng.standard_normal((B, jmeta.nx)),
+        z=z, v=v, r_prev=zpair(), s_prev=zpair(),
+        dirstate=(zpair((B, 3)), zpair((B, 3))),
+        r_safe=np.array([np.inf, 50.0, 1e3, 5.0]),
+        eta=np.full(B, np.inf),
+        res0=np.array([[-np.inf, -np.inf], [2.0, 3.0], [1.0, 4.0],
+                       [0.5, 0.5]]),
+        done=np.array([False, False, False, True]),
+        niter=np.array([0, 1, 2, 6], np.int32),
+        xi1=np.full(B, np.inf), xi2=np.full(B, np.inf),
+        it=np.int32(4), hist=np.zeros((0, B, 3)),
+        cache_valid=np.full(B, cache_valid),
+        zbar_c=zbar_c, vbar_c=vbar_c,
+        rnorm_c=rng.random(B) + 1.0, nMrz_c=rng.random(B),
+        nMrv_c=rng.random(B),
+    )
+    return jax.tree_util.tree_map(jnp.asarray, c)
+
+
+def _carry_to_port(jc):
+    fields = {}
+    for fl in dataclasses.fields(sp.SPCarry):
+        val = getattr(jc, fl.name)
+        fields[fl.name] = int(val) if fl.name == "it" else to_port(
+            jax.tree_util.tree_map(np.asarray, val))
+    return sp.SPCarry(**fields)
+
+
+def _compare_carries(got, ref, atol):
+    for fl in dataclasses.fields(sp.SPCarry):
+        if fl.name == "it":
+            assert got.it == int(ref.it)
+            continue
+        assert_close(getattr(got, fl.name), getattr(ref, fl.name), atol=atol,
+                     path=fl.name)
+
+
+@pytest.mark.parametrize("start", ["random", "random_cached", "solve"])
+def test_one_sp_body_iteration_matches_jax(problem, jax_body, start):
+    """One SuperMann iteration from the same carry, at 1e-10."""
+    _, jmeta, pdata, pmeta = problem
+    jbody = jax_body
+    rng = np.random.default_rng(4)
+    if start == "solve":
+        x0 = jnp.asarray(rng.uniform(-0.5, 0.5, (B, jmeta.nx)))
+        jc = jsp.sp_init(jmeta, x0, jzero_primal(jmeta, (B,), jnp.float64),
+                         jzero_dual(jmeta, (B,), jnp.float64))
+        for _ in range(3):
+            jc = jbody(jc)
+    else:
+        jc = _random_carry(rng, jmeta, cache_valid=start == "random_cached")
+    pc = _carry_to_port(jc)
+    ref = jbody(jc)
+    got = sp.sp_body(pdata, pmeta, SP_TOL)(pc)
+    _compare_carries(got, ref, atol=1e-10)
+
+
+def test_broyden_is_not_ported_yet(problem):
+    _, _, pdata, pmeta = problem
+    opts = sp.SuperMannOpts(direction="broyden")
+    with pytest.raises(NotImplementedError):
+        sp.sp_body(pdata, pmeta, SP_TOL, opts)
+    x0 = torch.zeros((1, pmeta.nx), dtype=torch.float64)
+    z0, v0 = to_port(rand_pair(np.random.default_rng(0), pmeta, batch=(1,)))
+    with pytest.raises(NotImplementedError):
+        sp.sp_init(pmeta, x0, z0, v0, opts)
