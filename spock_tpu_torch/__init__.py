@@ -4,8 +4,9 @@ NVIDIA H100.
 The port of the JAX package ``spock_tpu``: scenario trees with uniform
 branching, linear tree-indexed dynamics, quadratic costs, conic risk
 measures, box constraints, solved by Chambolle-Pock optionally accelerated
-by SuperMann + Anderson.  Plain tensor code is PyTorch; the prox_h* phase of
-every CP sweep is a CUDA kernel written for Hopper (``csrc/``).
+by SuperMann with Anderson or Broyden directions.  Plain tensor code is
+PyTorch; each CP sweep is one CUDA kernel written for Hopper, and so is the
+metric M and the prox_h* phase of the composed sweep (``csrc/``).
 
 Entry points (``build``, ``Solver``, ``mpc.simulate_async``) run on the card
 unless given ``device="cpu"``; without a card and without a device they

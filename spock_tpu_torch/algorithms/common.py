@@ -9,11 +9,12 @@ iterate is frozen while the others go on.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
 
-from ..ops import cuda_kernels
+from ..ops import cuda_kernels, sweep_kernels
 from ..ops.linop import apply_L, apply_LT, metric_apply
 from ..ops.prox import prox_f, prox_h_conj
 from ..zv import Dual, Primal, inf_norm, lincomb, sub, tmap, vdot
@@ -34,31 +35,43 @@ def blincomb(a, x, b, y):
     return tmap(lambda xl, yl: bexpand(a, xl) * xl + bexpand(b, yl) * yl, x, y)
 
 
-def cp_sweep(data, meta, z: Primal, v: Dual, gamma, sigma, x0):
-    """One Chambolle-Pock sweep: returns (zbar, vbar).
-
-    zbar = prox_f(z - gamma L' v); vbar = prox_h*(v + sigma L (2 zbar - z)).
-    The prox_h* phase goes through the CUDA kernel wrapper whenever the
-    kernel covers the problem class (the wrapper itself takes the plain
-    version for CPU tensors), and through the plain version otherwise.
-    """
+def _cp_sweep_composed(data, meta, z, v, gamma, sigma, x0, prox_h):
     z1 = tmap(lambda a, b: a - gamma * b, z, apply_LT(data, meta, v))
     zbar = prox_f(data, meta, z1, gamma, x0)
     z_refl = lincomb(2.0, zbar, -1.0, z)
     v1 = tmap(lambda a, b: a + sigma * b, v, apply_L(data, meta, z_refl))
+    return zbar, prox_h(v1)
+
+
+def cp_sweep_ref(data, meta, z: Primal, v: Dual, gamma, sigma, x0):
+    """The CP sweep in plain PyTorch operators, no kernel anywhere: the plain
+    version of the sweep kernels (``ops.sweep_kernels``)."""
+    return _cp_sweep_composed(data, meta, z, v, gamma, sigma, x0,
+                              lambda v1: prox_h_conj(data, meta, v1, sigma))
+
+
+def cp_sweep(data, meta, z: Primal, v: Dual, gamma, sigma, x0,
+             fused: bool = True):
+    """One Chambolle-Pock sweep: returns (zbar, vbar).
+
+    zbar = prox_f(z - gamma L' v); vbar = prox_h*(v + sigma L (2 zbar - z)).
+    With ``fused`` and a problem the sweep kernel covers, the sweep is one
+    kernel launch.  Otherwise it is the composed path: PyTorch operators,
+    with the prox_h* phase in its own kernel where that kernel covers the
+    problem.  (A wrapper itself takes its plain version for CPU tensors.)
+    """
+    if fused and sweep_kernels.supported(meta, data):
+        return sweep_kernels.cp_sweep_fused(data, meta, z, v, gamma, sigma, x0)
     if cuda_kernels.supported(meta):
-        vbar = cuda_kernels.prox_h_conj_fused(data, meta, v1, sigma)
+        def prox_h(v1):
+            return cuda_kernels.prox_h_conj_fused(data, meta, v1, sigma)
     else:
-        vbar = prox_h_conj(data, meta, v1, sigma)
-    return zbar, vbar
+        def prox_h(v1):
+            return prox_h_conj(data, meta, v1, sigma)
+    return _cp_sweep_composed(data, meta, z, v, gamma, sigma, x0, prox_h)
 
 
-def cp_sweep_metric(data, meta, z: Primal, v: Dual, gamma, sigma, x0):
-    """One CP sweep plus the metric image of its fixed-point residual and the
-    per-lane reductions SuperMann consumes: returns ``(zbar, vbar, Mrz, Mrv,
-    rnorm_sq, nMrz, nMrv)`` with ``(Mrz, Mrv) = M (z - zbar, v - vbar)``,
-    ``rnorm_sq = <r, M r>`` and nMrz/nMrv the inf-norms of M r's halves."""
-    zbar, vbar = cp_sweep(data, meta, z, v, gamma, sigma, x0)
+def _sweep_metric_tail(data, meta, z, v, zbar, vbar, gamma, sigma):
     rz, rv = sub(z, zbar), sub(v, vbar)
     Mrz, Mrv = metric_apply(data, meta, rz, rv, gamma, sigma)
     rnorm_sq = vdot(rz, Mrz, 1) + vdot(rv, Mrv, 1)
@@ -66,18 +79,33 @@ def cp_sweep_metric(data, meta, z: Primal, v: Dual, gamma, sigma, x0):
             inf_norm(Mrz, batch_ndim=1), inf_norm(Mrv, batch_ndim=1))
 
 
-def candidate_sweep(data, meta, z: Primal, v: Dual, dz: Primal, dv: Dual, tau,
-                    gamma, sigma, x0, Md=None):
-    """SuperMann candidate evaluation at (w, u) = (z, v) + tau (dz, dv).
+def cp_sweep_metric(data, meta, z: Primal, v: Dual, gamma, sigma, x0,
+                    fused: bool = True):
+    """One CP sweep plus the metric image of its fixed-point residual and the
+    per-lane reductions SuperMann consumes: returns ``(zbar, vbar, Mrz, Mrv,
+    rnorm_sq, nMrz, nMrv)`` with ``(Mrz, Mrv) = M (z - zbar, v - vbar)``,
+    ``rnorm_sq = <r, M r>`` and nMrz/nMrv the inf-norms of M r's halves.
+    One kernel launch with ``fused`` where the sweep kernel covers the
+    problem."""
+    if fused and sweep_kernels.supported(meta, data):
+        return sweep_kernels.cp_sweep_metric_fused(data, meta, z, v, gamma,
+                                                   sigma, x0)
+    zbar, vbar = cp_sweep(data, meta, z, v, gamma, sigma, x0, fused=False)
+    return _sweep_metric_tail(data, meta, z, v, zbar, vbar, gamma, sigma)
 
-    Returns ``(wbar, ubar, Mrz, Mrv, rnorm_sq, nMrz, nMrv, rho_dot, nMdz,
-    nMdv)``: the first seven as :func:`cp_sweep_metric` at the candidate,
-    plus ``rho_dot = <r~, M d>`` and the inf-norms of M d's halves.  ``Md``
-    may carry a precomputed ``(Mdz, Mdv)``: d does not change between
-    backtracking trials, so the caller computes it once."""
+
+def cp_sweep_metric_ref(data, meta, z: Primal, v: Dual, gamma, sigma, x0):
+    """Plain-operator :func:`cp_sweep_metric` (see :func:`cp_sweep_ref`)."""
+    zbar, vbar = cp_sweep_ref(data, meta, z, v, gamma, sigma, x0)
+    return _sweep_metric_tail(data, meta, z, v, zbar, vbar, gamma, sigma)
+
+
+def _candidate_sweep_tail(data, meta, z, v, dz, dv, tau, gamma, sigma, x0, Md,
+                          sweep):
+    tau = torch.as_tensor(tau, dtype=z.s.dtype, device=z.s.device)
     w = tmap(lambda a, b: a + bexpand(tau, a) * b, z, dz)
     u = tmap(lambda a, b: a + bexpand(tau, a) * b, v, dv)
-    wbar, ubar = cp_sweep(data, meta, w, u, gamma, sigma, x0)
+    wbar, ubar = sweep(data, meta, w, u, gamma, sigma, x0)
     rw, ru = sub(w, wbar), sub(u, ubar)
     Mrz, Mrv = metric_apply(data, meta, rw, ru, gamma, sigma)
     rnorm_sq = vdot(rw, Mrz, 1) + vdot(ru, Mrv, 1)
@@ -92,8 +120,39 @@ def candidate_sweep(data, meta, z: Primal, v: Dual, dz: Primal, dv: Dual, tau,
     )
 
 
-def metric_pair(data, meta, z: Primal, v: Dual, gamma, sigma):
-    """M (z, v)."""
+def candidate_sweep(data, meta, z: Primal, v: Dual, dz: Primal, dv: Dual, tau,
+                    gamma, sigma, x0, Md=None, fused: bool = True):
+    """SuperMann candidate evaluation at (w, u) = (z, v) + tau (dz, dv).
+
+    Returns ``(wbar, ubar, Mrz, Mrv, rnorm_sq, nMrz, nMrv, rho_dot, nMdz,
+    nMdv)``: the first seven as :func:`cp_sweep_metric` at the candidate,
+    plus ``rho_dot = <r~, M d>`` and the inf-norms of M d's halves.  One
+    kernel launch with ``fused`` where the sweep kernel covers the problem (M
+    d is never stored there).  On the composed path ``Md`` may carry a
+    precomputed ``(Mdz, Mdv)``: d does not change between backtracking
+    trials, so the caller computes it once."""
+    if fused and sweep_kernels.supported(meta, data):
+        return sweep_kernels.candidate_sweep_fused(data, meta, z, v, dz, dv,
+                                                   tau, gamma, sigma, x0)
+
+    return _candidate_sweep_tail(data, meta, z, v, dz, dv, tau, gamma, sigma,
+                                 x0, Md, functools.partial(cp_sweep,
+                                                           fused=False))
+
+
+def candidate_sweep_ref(data, meta, z, v, dz, dv, tau, gamma, sigma, x0,
+                        Md=None):
+    """Plain-operator :func:`candidate_sweep` (see :func:`cp_sweep_ref`)."""
+    return _candidate_sweep_tail(data, meta, z, v, dz, dv, tau, gamma, sigma,
+                                 x0, Md, cp_sweep_ref)
+
+
+def metric_pair(data, meta, z: Primal, v: Dual, gamma, sigma,
+                fused: bool = True):
+    """M (z, v): one kernel launch with ``fused`` where the sweep kernels
+    cover the problem, the plain operators otherwise."""
+    if fused and sweep_kernels.supported(meta, data):
+        return sweep_kernels.metric_apply_fused(data, meta, z, v, gamma, sigma)
     return metric_apply(data, meta, z, v, gamma, sigma)
 
 

@@ -22,9 +22,11 @@ from .common import (
 
 def run_cp(data: ProblemData, meta: ProblemMeta, x0, z0: Primal, v0: Dual,
            tol, max_iter: int, gamma=None, sigma=None,
-           lam: float = 1.0) -> SolveResult:
+           lam: float = 1.0, fused_sweep: bool = True) -> SolveResult:
     """Solve to tolerance from a warm start (z0, v0); everything batched
-    [B, ...], x0: [B, nx]."""
+    [B, ...], x0: [B, nx].  ``fused_sweep``: one kernel launch per sweep
+    where the sweep kernel covers the problem (default), the composed path
+    when False."""
     if gamma is None or sigma is None:
         gamma = sigma = step_size(data)
     tol = float(tol)
@@ -39,7 +41,8 @@ def run_cp(data: ProblemData, meta: ProblemMeta, x0, z0: Primal, v0: Dual,
     xi2 = torch.full((B,), float("inf"), dtype=dtype, device=device)
     it = 0
     while it < max_iter and not bool(done.all()):
-        zbar, vbar = cp_sweep(data, meta, z, v, gamma, sigma, x0)
+        zbar, vbar = cp_sweep(data, meta, z, v, gamma, sigma, x0,
+                              fused=fused_sweep)
         if lam == 1.0:
             z_new, v_new = zbar, vbar
         else:

@@ -10,8 +10,14 @@ iteration.
 
 Every decision is lane-masked over the batch axis.  The JAX package's
 ``lax.while_loop``s are host loops here, on a lane mask; the batch-wide
-cache test is a Python ``if`` on one ``.all()``.  Directions: "anderson"
-and "residual"; "broyden" is not ported yet.
+cache test is a Python ``if`` on one ``.all()``.  Directions: "anderson",
+"broyden" and "residual".
+
+``fused_sweep`` (default True) chooses the sweep: one kernel launch per CP
+sweep where the sweep kernels cover the problem (``common.cp_sweep_metric``,
+``candidate_sweep``, ``metric_pair``), the composed path of PyTorch operators
+and the prox_h* kernel otherwise or when False.  It is the counterpart of the
+JAX package's ``SPOCK_PALLAS_SWEEP``, given as an argument.
 """
 
 from __future__ import annotations
@@ -21,9 +27,10 @@ from typing import Any
 
 import torch
 
+from ..ops import sweep_kernels
 from ..problem import ProblemData, ProblemMeta, step_size
-from ..zv import Dual, Primal, lincomb, sub, tmap
-from . import anderson
+from ..zv import Dual, Primal, leaves, lincomb, sub, tmap
+from . import anderson, broyden
 from .common import (
     SolveResult,
     bexpand,
@@ -49,7 +56,8 @@ class SuperMannOpts:
     lam_sp: float = 1.0  # K2 projection relaxation
     aa_window: int = 3  # Anderson window
     k0: bool = False  # blind updates
-    direction: str = "anderson"  # "anderson" | "residual"
+    direction: str = "anderson"  # "anderson" | "broyden" | "residual"
+    broyden_mem: int = 20  # Broyden restart length
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +67,7 @@ class SPCarry:
     v: Dual
     r_prev: Any  # (Primal, Dual) previous residual
     s_prev: Any  # (Primal, Dual) z_k - z_{k-1}
-    dirstate: Any  # Anderson histories (MR, MP), or ()
+    dirstate: Any  # Anderson histories (MR, MP), Broyden ring, or ()
     r_safe: Any  # [B]
     eta: Any  # [B] K0 threshold
     res0: Any  # [B, 2]
@@ -79,18 +87,44 @@ class SPCarry:
     nMrv_c: Any  # [B]
 
 
+def _ravel_pair(z: Primal, v: Dual):
+    """(Primal, Dual) with leaves [B, ...] -> one flat [B, K] tensor."""
+    ls = leaves((z, v))
+    B = ls[0].shape[0]
+    return torch.cat([a.reshape(B, -1) for a in ls], dim=-1)
+
+
+def _unravel_pair(flat, like_z: Primal, like_v: Dual):
+    """Inverse of :func:`_ravel_pair` onto the layout of (like_z, like_v);
+    the leaves are contiguous copies, as the kernels take them."""
+    off = 0
+
+    def take(a):
+        nonlocal off
+        size = a[0].numel()
+        out = flat[:, off:off + size].reshape(a.shape).contiguous()
+        off += size
+        return out
+
+    return tmap(take, like_z), tmap(take, like_v)
+
+
 def _make_candidate(data, meta, x0, z, v, dz, dv, rnorm, q_pow, opts, gamma,
-                    sigma):
+                    sigma, fused_sweep):
     """The one-backtracking-trial closure at per-lane step size tau.
 
     Returns the updated acceptance state plus the candidate's sweep results
     (the tau=1 trial's become the next iteration's cache)."""
-    Md = metric_pair(data, meta, dz, dv, gamma, sigma)
+    # d does not change between trials: the composed path computes M d once;
+    # the candidate kernel computes it in every launch without storing it
+    Md = None
+    if not (fused_sweep and sweep_kernels.supported(meta, data)):
+        Md = metric_pair(data, meta, dz, dv, gamma, sigma, fused=False)
 
     def candidate(tau, looping, b_z_acc, b_v_acc, b_r_safe, b_xi1, b_xi2):
         (wbar, ubar, _Mrw, _Mru, rt_sq, nMrwz, nMrwv, rho_dot, nMdz,
          nMdv) = candidate_sweep(data, meta, z, v, dz, dv, tau, gamma, sigma,
-                                 x0, Md=Md)
+                                 x0, Md=Md, fused=fused_sweep)
         w = tmap(lambda zl, dl: zl + bexpand(tau, zl) * dl, z, dz)
         u = tmap(lambda vl, dl: vl + bexpand(tau, vl) * dl, v, dv)
         rw = sub(w, wbar)
@@ -172,10 +206,11 @@ def sp_init(meta: ProblemMeta, x0, z0: Primal, v0: Dual,
                                dtype=dtype, device=device)
 
         dirstate0 = (tmap(hzeros, (z0, v0)), tmap(hzeros, (z0, v0)))
+    elif opts.direction == "broyden":
+        K = _ravel_pair(z0, v0).shape[-1]
+        dirstate0 = broyden.init(B, K, opts.broyden_mem, dtype, device)
     elif opts.direction == "residual":
         dirstate0 = ()
-    elif opts.direction == "broyden":
-        raise NotImplementedError("direction='broyden' is not ported yet")
     else:
         raise ValueError(f"unknown direction {opts.direction!r}")
 
@@ -208,12 +243,12 @@ def sp_init(meta: ProblemMeta, x0, z0: Primal, v0: Dual,
 
 
 def sp_body(data: ProblemData, meta: ProblemMeta, tol,
-            opts: SuperMannOpts = SuperMannOpts(), gamma=None, sigma=None):
+            opts: SuperMannOpts = SuperMannOpts(), gamma=None, sigma=None,
+            fused_sweep: bool = True):
     """Returns the one-iteration transition function carry -> carry, for
     outer drivers (the async MPC farm) to embed in their own loops."""
-    if opts.direction not in ("anderson", "residual"):
-        raise NotImplementedError(
-            f"direction={opts.direction!r} is not ported yet")
+    if opts.direction not in ("anderson", "broyden", "residual"):
+        raise ValueError(f"unknown direction {opts.direction!r}")
     if gamma is None or sigma is None:
         gamma = sigma = step_size(data)
     tol = float(tol)
@@ -230,7 +265,7 @@ def sp_body(data: ProblemData, meta: ProblemMeta, tol,
             rnorm, nMrz, nMrv = c.rnorm_c, c.nMrz_c, c.nMrv_c
         else:
             zbar, vbar, _Mrz, _Mrv, rnsq, nMrz, nMrv = cp_sweep_metric(
-                data, meta, c.z, c.v, gamma, sigma, x0)
+                data, meta, c.z, c.v, gamma, sigma, x0, fused=fused_sweep)
             rnorm = torch.sqrt(torch.clamp(rnsq, min=0.0))
         rz = sub(c.z, zbar)
         rv = sub(c.v, vbar)
@@ -249,6 +284,18 @@ def sp_body(data: ProblemData, meta: ProblemMeta, tol,
             MP = anderson.hist_insert(c.dirstate[1], p)
             dz, dv = anderson.direction_struct(MR, MP, r_pair, c.niter)
             dirstate = (MR, MP)
+        elif opts.direction == "broyden":
+            hp = has_prev[:, None]
+            r_flat = _ravel_pair(rz, rv)
+            y_flat = r_flat - torch.where(hp, _ravel_pair(*c.r_prev), 0.0)
+            s_flat = torch.where(hp, _ravel_pair(*c.s_prev), 0.0)
+            sz, sv = _unravel_pair(s_flat, c.z, c.v)
+            Msz, Msv = metric_pair(data, meta, sz, sv, gamma, sigma,
+                                   fused=fused_sweep)
+            d_flat, dirstate = broyden.direction(
+                c.dirstate, r_flat, s_flat, y_flat, _ravel_pair(Msz, Msv),
+                opts.broyden_mem)
+            dz, dv = _unravel_pair(d_flat, c.z, c.v)
         else:  # plain residual direction (KM step candidates)
             dz, dv = tmap(torch.negative, rz), tmap(torch.negative, rv)
             dirstate = ()
@@ -285,7 +332,7 @@ def sp_body(data: ProblemData, meta: ProblemMeta, tol,
                           c.niter.to(dtype))
 
         candidate = _make_candidate(data, meta, x0, c.z, c.v, dz, dv, rnorm,
-                                    q_pow, opts, gamma, sigma)
+                                    q_pow, opts, gamma, sigma, fused_sweep)
 
         # ---- first trial at tau = 1 (the common accept path) ----
         looping0 = loop_init & (~c.done)
@@ -336,10 +383,11 @@ def sp_body(data: ProblemData, meta: ProblemMeta, tol,
 def run_supermann(data: ProblemData, meta: ProblemMeta, x0, z0: Primal,
                   v0: Dual, tol, max_iter: int,
                   opts: SuperMannOpts = SuperMannOpts(), gamma=None,
-                  sigma=None) -> SolveResult:
+                  sigma=None, fused_sweep: bool = True) -> SolveResult:
     """Solve to tolerance from a warm start (z0, v0); batched [B, ...]."""
     c = sp_init(meta, x0, z0, v0, opts)
-    body = sp_body(data, meta, tol, opts, gamma=gamma, sigma=sigma)
+    body = sp_body(data, meta, tol, opts, gamma=gamma, sigma=sigma,
+                   fused_sweep=fused_sweep)
     while c.it < max_iter and not bool(c.done.all()):
         c = body(c)
     return SolveResult(

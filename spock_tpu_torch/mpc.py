@@ -8,6 +8,10 @@ lane starts its next warm-started solve the moment its current one
 converges, so throughput follows the mean iteration count, not the
 slowest lane.  The JAX package's ``lax.scan`` and ``lax.while_loop`` are
 host loops here, with one device-to-host sync per farm iteration.
+
+``fused_sweep`` chooses the CP sweep of the solvers (see
+:mod:`spock_tpu_torch.algorithms.supermann`): one kernel launch per sweep by
+default, the composed path when False.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from .algorithms import cp as cp_alg
 from .algorithms import supermann as sp_alg
 from .problem import ProblemData, ProblemMeta
 from .solver import check_device, zero_dual, zero_primal
+from .zv import tmap
 
 
 def _plant(data: ProblemData, x, u, w):
@@ -41,7 +46,7 @@ class MPCResult:
 def simulate(data: ProblemData, meta: ProblemMeta, x0, ws, tol,
              algorithm: str = "spock", max_iter: int = 1000,
              opts: sp_alg.SuperMannOpts = sp_alg.SuperMannOpts(),
-             device=None) -> MPCResult:
+             device=None, fused_sweep: bool = True) -> MPCResult:
     """Closed-loop simulation.  x0: [B, nx] initial states; ws: [T, B] int
     realization indices; tol: solver tolerance per step."""
     device = check_device(data, device)
@@ -54,10 +59,11 @@ def simulate(data: ProblemData, meta: ProblemMeta, x0, ws, tol,
     for w in ws:
         if algorithm == "spock":
             res = sp_alg.run_supermann(data, meta, x, z, v, tol=tol,
-                                       max_iter=max_iter, opts=opts)
+                                       max_iter=max_iter, opts=opts,
+                                       fused_sweep=fused_sweep)
         else:
             res = cp_alg.run_cp(data, meta, x, z, v, tol=tol,
-                                max_iter=max_iter)
+                                max_iter=max_iter, fused_sweep=fused_sweep)
         u0 = res.z.u[:, :, 0]
         x = _plant(data, x, u0, w)
         z, v = res.z, res.v
@@ -94,6 +100,7 @@ def simulate_async(
     z0=None,
     v0=None,
     device=None,
+    fused_sweep: bool = True,
 ) -> AsyncMPCResult:
     """Asynchronous MPC farm of B lanes, each running ``n_steps`` warm-started
     solves of its own chain.
@@ -115,7 +122,7 @@ def simulate_async(
     if v0 is None:
         v0 = zero_dual(meta, (B,), dtype, device)
     sp = sp_alg.sp_init(meta, x0, z0, v0, opts)
-    body = sp_alg.sp_body(data, meta, tol, opts)
+    body = sp_alg.sp_body(data, meta, tol, opts, fused_sweep=fused_sweep)
     lanes = torch.arange(B, device=device)
     step_idx = torch.zeros((B,), dtype=torch.int64, device=device)
     iters_rec = torch.zeros((T, B), dtype=torch.int32, device=device)
@@ -134,9 +141,17 @@ def simulate_async(
         step_idx = step_idx + fin.to(torch.int64)
         # Refill: the plant advances; res0, r_safe, eta and niter reset;
         # cache_valid is cleared (the cached sweep pinned the old x0).  The
-        # quasi-Newton memory needs no reset: niter = 0 masks the stale
+        # Anderson memory needs no reset: niter = 0 masks the stale
         # r_prev/s_prev reads, and the newest-first Anderson rows older than
-        # the current solve drop out by the j <= niter validity rule.
+        # the current solve drop out by the j <= niter validity rule.  The
+        # Broyden ring is zeroed per lane.
+        dirstate = sp.dirstate
+        if opts.direction == "broyden":
+            dirstate = tmap(
+                lambda a: torch.where(
+                    fin.reshape(fin.shape + (1,) * (a.ndim - 1)),
+                    torch.zeros_like(a), a),
+                dirstate)
         sp = dataclasses.replace(
             sp,
             x0=torch.where(fin[:, None], x_next, sp.x0),
@@ -146,6 +161,7 @@ def simulate_async(
             eta=torch.where(fin, float("inf"), sp.eta),
             niter=torch.where(fin, 0, sp.niter).to(torch.int32),
             cache_valid=sp.cache_valid & ~fin,
+            dirstate=dirstate,
         )
         total += 1
     return AsyncMPCResult(

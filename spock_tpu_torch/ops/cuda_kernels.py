@@ -1,6 +1,8 @@
-"""Hand-written CUDA kernels of the port, their wrappers and launch counts.
+"""The prox_h* CUDA kernel of the port, its wrapper and launch count.
 
-``prox_h_conj_fused`` is the prox_h* phase of every CP sweep; its kernel is
+``prox_h_conj_fused`` is the prox_h* phase of a CP sweep on the composed path
+(``fused_sweep=False``, or a problem the sweep kernels of
+:mod:`spock_tpu_torch.ops.sweep_kernels` do not cover); its kernel is
 ``csrc/prox_h_conj.cu`` and it replaces the Pallas TPU kernel
 ``spock_tpu/ops/pallas_kernels.py::prox_h_conj_fused``.  The kernel is bound
 by memory: it reads and writes the nv values of the dual iterate once per
@@ -26,8 +28,9 @@ from .prox import prox_h_conj
 
 LAUNCHES = 0
 
-# kind codes of the dual-cone row segments (same as csrc/prox_h_conj.cu)
-_KIND = {"zero": 0, "nonneg": 1, "nonpos": 2, "reals": 3}
+# kind codes of the dual-cone row segments (same as csrc/prox_h_conj.cu and
+# csrc/cp_sweep.cu)
+KIND = {"zero": 0, "nonneg": 1, "nonpos": 2, "reals": 3}
 MAX_SEGMENTS = 8
 
 _bound = set()
@@ -47,7 +50,7 @@ def supported(meta: ProblemMeta) -> bool:
     """The kernel covers polyhedral dual cones without polytope rows."""
     if meta.nc_nl or meta.nc_lf:
         return False
-    return (all(k in _KIND for k, _ in meta.dual_cone)
+    return (all(k in KIND for k, _ in meta.dual_cone)
             and len(meta.dual_cone) <= MAX_SEGMENTS)
 
 
@@ -121,7 +124,7 @@ def prox_h_conj_fused(data: ProblemData, meta: ProblemMeta, v: Dual,
     bound_ptrs = (ctypes.c_void_p * 4)(*[a.data_ptr() for a in bounds])
     segs = cone_segments(meta.dual_cone)
     triples = (ctypes.c_int * max(1, 3 * len(segs)))(
-        *[x for kind, lo, hi in segs for x in (_KIND[kind], lo, hi)])
+        *[x for kind, lo, hi in segs for x in (KIND[kind], lo, hi)])
     sigma = float(sigma)
     t = meta.tree
     with torch.cuda.device(device):

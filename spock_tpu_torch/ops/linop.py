@@ -133,7 +133,8 @@ def apply_LT(data: ProblemData, meta: ProblemMeta, v: Dual) -> Primal:
 
 
 def metric_apply(data, meta, z: Primal, v: Dual, gamma, sigma):
-    """M (z, v) = (z - gamma L'v, v - sigma L z)."""
+    """M (z, v) = (z - gamma L'v, v - sigma L z); the plain version of
+    :func:`spock_tpu_torch.ops.sweep_kernels.metric_apply_fused`."""
     Ltv = apply_LT(data, meta, v)
     Lz = apply_L(data, meta, z)
     mz = tmap(lambda a, b: a - gamma * b, z, Ltv)

@@ -75,7 +75,10 @@ def check_device(data: ProblemData, device) -> torch.device:
 @dataclasses.dataclass
 class Solver:
     """algorithm: "spock" (CP + SuperMann + Anderson, default) or "cp"
-    (plain Chambolle-Pock).  device: None means the card."""
+    (plain Chambolle-Pock).  device: None means the card.  fused_sweep: one
+    kernel launch per CP sweep where the sweep kernels cover the problem
+    (default); False takes the composed path (PyTorch operators and the
+    prox_h* kernel)."""
 
     data: ProblemData
     meta: ProblemMeta
@@ -84,6 +87,7 @@ class Solver:
     lam: float = 1.0
     supermann: Optional[sp_alg.SuperMannOpts] = None
     device: Optional[str] = None
+    fused_sweep: bool = True
 
     def __post_init__(self):
         if self.algorithm not in ("spock", "cp"):
@@ -113,11 +117,13 @@ class Solver:
             v0 = zero_dual(self.meta, (B,), self.dtype, self.device)
         if self.algorithm == "cp":
             res = cp_alg.run_cp(self.data, self.meta, x0, z0, v0, tol=tol,
-                                max_iter=int(self.max_iter), lam=self.lam)
+                                max_iter=int(self.max_iter), lam=self.lam,
+                                fused_sweep=self.fused_sweep)
         else:
             res = sp_alg.run_supermann(self.data, self.meta, x0, z0, v0,
                                        tol=tol, max_iter=int(self.max_iter),
-                                       opts=self.supermann)
+                                       opts=self.supermann,
+                                       fused_sweep=self.fused_sweep)
         if unbatched:
             res = tmap(lambda a: a[0], res)
         return res

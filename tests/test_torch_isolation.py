@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither JAX nor the JAX package, its
-entry points run on the card unless told otherwise, and its kernel wrapper
-never falls back to the plain version for a tensor that is not on the CPU.
+entry points run on the card unless told otherwise, and its kernel wrappers
+never fall back to the plain version for a tensor that is not on the CPU.
 
 This file imports no JAX, so its card test also runs on a machine without
 JAX:  python -m pytest tests/test_torch_isolation.py -m cuda --noconftest
@@ -20,9 +20,10 @@ import torch
 import spock_tpu_torch
 from spock_tpu_torch import build, mpc
 from spock_tpu_torch.models import server_heat
-from spock_tpu_torch.ops import _build, cuda_kernels, prox
+from spock_tpu_torch.algorithms import common
+from spock_tpu_torch.ops import _build, cuda_kernels, linop, prox, sweep_kernels
 from spock_tpu_torch.solver import Solver
-from spock_tpu_torch.zv import DUAL_BLOCKS, Dual
+from spock_tpu_torch.zv import DUAL_BLOCKS, Dual, leaves
 
 torch.set_num_threads(1)
 
@@ -34,6 +35,8 @@ def test_import_and_solve_load_no_jax():
     code = (
         "import sys, numpy as np, torch\n"
         "import spock_tpu_torch as st\n"
+        "import spock_tpu_torch.ops.sweep_kernels\n"
+        "import spock_tpu_torch.algorithms.broyden\n"
         "from spock_tpu_torch.models import car\n"
         "data, meta = st.build(car.make_spec(N=3, d=2), dtype=torch.float64,"
         " device='cpu')\n"
@@ -115,6 +118,38 @@ def test_kernel_wrapper_never_falls_back(cpu_problem):
     assert cuda_kernels.LAUNCHES == before
 
 
+def _meta_pair(meta, B, dtype=torch.float32):
+    return sweep_kernels._pair([
+        torch.empty(s, dtype=dtype, device="meta")
+        for s in sweep_kernels.pair_shapes(meta, B)])
+
+
+SWEEP_CALLS = {
+    "cp_sweep_fused": lambda f, d, m, z, v, x0, tau: f(d, m, z, v, 0.2, 0.3,
+                                                       x0),
+    "cp_sweep_metric_fused": lambda f, d, m, z, v, x0, tau: f(
+        d, m, z, v, 0.2, 0.3, x0),
+    "candidate_sweep_fused": lambda f, d, m, z, v, x0, tau: f(
+        d, m, z, v, z, v, tau, 0.2, 0.3, x0),
+    "metric_apply_fused": lambda f, d, m, z, v, x0, tau: f(d, m, z, v, 0.2,
+                                                           0.3),
+}
+
+
+@pytest.mark.parametrize("name", list(SWEEP_CALLS))
+def test_sweep_wrappers_never_fall_back(cpu_problem, name):
+    """Tensors that are not on the CPU go to the sweep kernels or raise."""
+    data, meta = cpu_problem
+    z, v = _meta_pair(meta, 2, torch.float64)
+    x0 = torch.empty((2, meta.nx), dtype=torch.float64, device="meta")
+    tau = torch.empty((2,), dtype=torch.float64, device="meta")
+    before = dict(sweep_kernels.LAUNCHES)
+    with pytest.raises(ValueError, match=f"{name} kernel"):
+        SWEEP_CALLS[name](getattr(sweep_kernels, name), data, meta, z, v, x0,
+                          tau)
+    assert sweep_kernels.LAUNCHES == before
+
+
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "_LIBS", {})
@@ -124,7 +159,9 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
         _build.library("prox_h_conj")
 
 
-def test_kernel_support_follows_the_problem_class():
+def test_kernel_support_follows_the_problem_class(cpu_problem):
+    import dataclasses
+
     from spock_tpu_torch.problem import ProblemMeta
     from spock_tpu_torch.tree import UniformTree
 
@@ -137,6 +174,16 @@ def test_kernel_support_follows_the_problem_class():
         cone=(("nonneg", 4), ("zero", 1)), nc_nl=2, **base))
     assert cuda_kernels.cone_segments((("nonneg", 4), ("reals", 1))) == (
         ("nonneg", 0, 4), ("reals", 4, 5))
+    # the sweep kernels: uniform costs and risk on top of the same class
+    data, meta = cpu_problem
+    assert sweep_kernels.supported(meta, data)
+    assert not sweep_kernels.supported(
+        dataclasses.replace(meta, cone=(("soc", 5),)), data)
+    assert not sweep_kernels.supported(dataclasses.replace(meta, nc_nl=2),
+                                       data)
+    per_node_q = data.sqrtQ.expand((meta.tree.n - 1,) + data.sqrtQ.shape[1:])
+    assert not sweep_kernels.supported(
+        meta, dataclasses.replace(data, sqrtQ=per_node_q))
 
 
 @pytest.mark.cuda
@@ -160,3 +207,62 @@ def test_kernel_matches_plain_version_on_the_card(dtype):
     for k in DUAL_BLOCKS:
         g, r = getattr(got, k), getattr(ref, k)
         assert float((g - r).abs().max()) <= rtol * (1 + float(r.abs().max())), k
+
+
+PLAIN = {
+    "cp_sweep_fused": lambda d, m, z, v, dz, dv, x0, tau: common.cp_sweep_ref(
+        d, m, z, v, 0.21, 0.37, x0),
+    "cp_sweep_metric_fused": lambda d, m, z, v, dz, dv, x0, tau: (
+        common.cp_sweep_metric_ref(d, m, z, v, 0.21, 0.37, x0)),
+    "candidate_sweep_fused": lambda d, m, z, v, dz, dv, x0, tau: (
+        common.candidate_sweep_ref(d, m, z, v, dz, dv, tau, 0.21, 0.37, x0)),
+    "metric_apply_fused": lambda d, m, z, v, dz, dv, x0, tau: (
+        linop.metric_apply(d, m, z, v, 0.21, 0.37)),
+}
+FUSED = {
+    "cp_sweep_fused": lambda d, m, z, v, dz, dv, x0, tau: (
+        sweep_kernels.cp_sweep_fused(d, m, z, v, 0.21, 0.37, x0)),
+    "cp_sweep_metric_fused": lambda d, m, z, v, dz, dv, x0, tau: (
+        sweep_kernels.cp_sweep_metric_fused(d, m, z, v, 0.21, 0.37, x0)),
+    "candidate_sweep_fused": lambda d, m, z, v, dz, dv, x0, tau: (
+        sweep_kernels.candidate_sweep_fused(d, m, z, v, dz, dv, tau, 0.21,
+                                            0.37, x0)),
+    "metric_apply_fused": lambda d, m, z, v, dz, dv, x0, tau: (
+        sweep_kernels.metric_apply_fused(d, m, z, v, 0.21, 0.37)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", list(FUSED))
+def test_sweep_kernel_matches_plain_version_on_the_card(name, dtype):
+    """Each sweep kernel against its plain version at a small size.  float64:
+    within 1e-9.  float32: within 1e-5 (1 + max|plain|) per output, since the
+    kernel sums the per-lane reductions and the matrix rows in another order
+    than PyTorch, over up to ~1e3 terms per lane here."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    data, meta = build(server_heat.make_spec(N=4, nx=5, d=2), dtype=dtype)
+    rng = np.random.default_rng(0)
+
+    def pair():
+        return sweep_kernels._pair([
+            torch.tensor(rng.standard_normal(s), dtype=dtype, device="cuda")
+            for s in sweep_kernels.pair_shapes(meta, 3)])
+
+    (z, v), (dz, dv) = pair(), pair()
+    x0 = torch.tensor(rng.standard_normal((3, meta.nx)), dtype=dtype,
+                      device="cuda")
+    tau = torch.tensor(rng.random(3), dtype=dtype, device="cuda")
+    before = sweep_kernels.LAUNCHES[name]
+    got = leaves(FUSED[name](data, meta, z, v, dz, dv, x0, tau))
+    torch.cuda.synchronize()
+    assert sweep_kernels.LAUNCHES[name] == before + 1
+    ref = leaves(PLAIN[name](data, meta, z, v, dz, dv, x0, tau))
+    assert len(got) == len(ref)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        err = float((g - r).abs().max())
+        if dtype == torch.float64:
+            assert err <= 1e-9, i
+        else:
+            assert err <= 1e-5 * (1 + float(r.abs().max())), i

@@ -74,6 +74,35 @@ def test_farm_lane_equals_standalone_warm_solves(problem):
     np.testing.assert_array_equal(res_a.us.numpy(), torch.stack(us).numpy())
 
 
+def test_broyden_farm_lane_equals_standalone_warm_solves(problem):
+    """The same with Broyden directions: a refill zeroes the lane's Broyden
+    ring, so the farm's iteration counts and controls EXACTLY equal
+    standalone warm-started Broyden solves."""
+    _, _, pdata, pmeta = problem
+    x0, ws = _inputs(13, pmeta.nx, pmeta.tree.d)
+    tol = 1e-4
+    opts = sp.SuperMannOpts(direction="broyden", broyden_mem=8)
+    res_a = mpc.simulate_async(pdata, pmeta, x0, ws, tol=tol, n_steps=T,
+                               opts=opts, device="cpu")
+
+    x = torch.tensor(x0)
+    z = zero_primal(pmeta, (B,), torch.float64, "cpu")
+    v = zero_dual(pmeta, (B,), torch.float64, "cpu")
+    iters, us = [], []
+    for t in range(T):
+        res = sp.run_supermann(pdata, pmeta, x, z, v, tol=tol, max_iter=1000,
+                               opts=opts)
+        assert bool(res.converged.all())
+        iters.append(res.iterations)
+        z, v = res.z, res.v
+        u0 = res.z.u[:, :, 0]
+        us.append(u0)
+        x = _plant(pdata, x, u0, torch.tensor(ws[t]))
+    np.testing.assert_array_equal(res_a.iters_per_step.numpy(),
+                                  torch.stack(iters).numpy())
+    np.testing.assert_array_equal(res_a.us.numpy(), torch.stack(us).numpy())
+
+
 def test_simulate_matches_async(problem):
     """The lockstep simulate and the async farm give the same closed loop."""
     _, _, pdata, pmeta = problem

@@ -15,12 +15,15 @@ import pytest
 import torch
 
 from spock_tpu.algorithms import anderson as janderson
+from spock_tpu.algorithms import broyden as jbroyden
 from spock_tpu.algorithms import common as jcommon
 from spock_tpu.algorithms import supermann as jsp
+from spock_tpu.solver import Solver as JSolver
 from spock_tpu.solver import zero_dual as jzero_dual
 from spock_tpu.solver import zero_primal as jzero_primal
-from spock_tpu_torch.algorithms import anderson, common
+from spock_tpu_torch.algorithms import anderson, broyden, common
 from spock_tpu_torch.algorithms import supermann as sp
+from spock_tpu_torch.solver import Solver
 from tests.torch_parity import (
     assert_close, jax_problem, port_data, rand_pair, to_jax, to_port)
 
@@ -166,12 +169,42 @@ def test_one_sp_body_iteration_matches_jax(problem, jax_body, start):
     _compare_carries(got, ref, atol=1e-10)
 
 
-def test_broyden_is_not_ported_yet(problem):
-    _, _, pdata, pmeta = problem
-    opts = sp.SuperMannOpts(direction="broyden")
-    with pytest.raises(NotImplementedError):
-        sp.sp_body(pdata, pmeta, SP_TOL, opts)
-    x0 = torch.zeros((1, pmeta.nx), dtype=torch.float64)
-    z0, v0 = to_port(rand_pair(np.random.default_rng(0), pmeta, batch=(1,)))
-    with pytest.raises(NotImplementedError):
-        sp.sp_init(pmeta, x0, z0, v0, opts)
+def test_broyden_direction_matches_jax():
+    """One restarted-Broyden direction and ring update, lanes at every
+    history length (0, partial, full: the full lane restarts)."""
+    rng = np.random.default_rng(5)
+    Bn, K, max_k = 4, 37, 5
+    state = jbroyden.BroydenState(
+        S=rng.standard_normal((Bn, max_k, K)),
+        St=rng.standard_normal((Bn, max_k, K)),
+        Ps=rng.standard_normal((Bn, max_k, K)),
+        k=np.array([0, 2, 5, 3], np.int32))
+    r, s_, y, ps = (rng.standard_normal((Bn, K)) for _ in range(4))
+    ref = jbroyden.direction(to_jax(state), *map(jnp.asarray, (r, s_, y, ps)),
+                             max_k)
+    got = broyden.direction(
+        broyden.BroydenState(**{k: to_port(getattr(state, k))
+                                for k in ("S", "St", "Ps", "k")}),
+        *map(to_port, (r, s_, y, ps)), max_k)
+    assert_close(got[0], ref[0], atol=1e-12)
+    for k in ("S", "St", "Ps", "k"):
+        assert_close(getattr(got[1], k), getattr(ref[1], k), atol=1e-12,
+                     path=k)
+
+
+def test_broyden_solve_matches_jax():
+    """Car N=3 with Broyden directions: the root controls and the objective
+    of the two packages' solves agree (tests/test_solver.py:135)."""
+    _, jdata, jmeta = jax_problem("car")
+    pdata, pmeta = port_data(jdata, jmeta)
+    x0 = np.array([0.1, 0.1])
+    ref = JSolver(jdata, jmeta, supermann=jsp.SuperMannOpts(
+        direction="broyden", broyden_mem=10)).solve(x0, tol=1e-6)
+    got = Solver(pdata, pmeta, supermann=sp.SuperMannOpts(
+        direction="broyden", broyden_mem=10), device="cpu").solve(
+        x0, tol=1e-6)
+    assert bool(got.converged) and bool(ref.converged)
+    np.testing.assert_allclose(got.z.u[:, 0].numpy(),
+                               np.asarray(ref.z.u)[:, 0], atol=2e-4)
+    np.testing.assert_allclose(float(got.z.s[0]), float(ref.z.s[0]),
+                               atol=2e-4)

@@ -15,14 +15,15 @@ from spock_tpu.models import server_heat as jsh
 from spock_tpu_torch import interop
 
 SMALL = {
-    "car": lambda m: m.make_spec(N=3, d=2),
-    "server_heat": lambda m: m.make_spec(N=4, nx=5, d=2),
+    "car": lambda: jcar.make_spec(N=3, d=2),
+    "server_heat": lambda: jsh.make_spec(N=4, nx=5, d=2),
+    "server_heat_d3": lambda: jsh.make_spec(N=3, nx=3, d=3),
 }
 
 
 def jax_problem(name):
     """(spec, data, meta) of a small problem, JAX build in float64."""
-    spec = SMALL[name]({"car": jcar, "server_heat": jsh}[name])
+    spec = SMALL[name]()
     data, meta = jbuild(spec, dtype=jnp.float64)
     return spec, data, meta
 
