@@ -7,31 +7,39 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 1. environment: the card's name and power limit (nvidia-smi), the torch and
    CUDA versions, and the TF32 switches, which must be off;
-2. build: every kernel under ``spock_tpu_torch/csrc`` with nvcc for sm_90a,
-   one nvcc per source, all started together;
+2. build: every kernel under ``spock_tpu_torch/csrc`` (prox_h_conj,
+   cp_sweep, metric_apply, sp_step) with nvcc for sm_90a, one nvcc per
+   source, all started together;
 3. each kernel against its plain PyTorch version at the shapes of the main
    path (B = 128 lanes of server_heat N=10 nx=nu=20 d=2, float32), and both
    timed with CUDA events: prox_h_conj, cp_sweep_fused,
-   cp_sweep_metric_fused, candidate_sweep_fused and metric_apply_fused;
+   cp_sweep_metric_fused, candidate_sweep_fused and metric_apply_fused on
+   random inputs; after 4a, sp_step_fused (the kernel of both TPU step
+   kernels: at tau = 1 with the carry's cache flags, and as a backtracking
+   retrial) on a real carry, one fused iteration into a solve from the main
+   path's final state, held in float64 and timed in float32;
 4. the paths, each driven with every kernel launch count set to 0 just
    before it and read just after:
-   a. the main path, ``mpc.simulate_async`` on the fused sweep: the
+   a. the main path, ``mpc.simulate_async`` on the fused step: the
       warm-started async MPC farm of B = 128 server_heat chains at tol 1e-3
       (a cold phase of 2 steps, then a warm phase of 24 steps chained from
-      its state), where every CP sweep is one launch of a sweep kernel;
-   b. the same farm on the composed path (``fused_sweep=False``), whose
+      its state), where every SuperMann iteration is one sp_step_fused
+      launch plus one per backtracking retrial;
+   b. the same farm on the fused sweep (``fused_step=False``), where every
+      CP sweep is one launch of a sweep kernel;
+   c. the same farm on the composed path (``fused_sweep=False``), whose
       prox_h* phase is the prox_h_conj kernel;
-   c. ``Solver(algorithm="cp")``, one cp_sweep_fused launch per iteration,
-      and d. ``Solver`` with Broyden directions, one metric_apply_fused
-      launch per iteration, both warm-started from 4 lanes of the farm at
-      its final states;
-5. the solution: the float32 root controls of a cold 1-step fused farm on
-   the card from the warm phase's states against the port's own float64
-   solve on the CPU (tol 1e-5) for 2 lanes, and the controls of 4c and 4d
-   at the same states against the same solve;
+   d. ``Solver(algorithm="cp")``, one cp_sweep_fused launch per iteration,
+      and e. ``Solver`` with Broyden directions, one metric_apply_fused
+      launch per iteration, both warm-started from 4 lanes of the main
+      path's farm at its final states;
+5. the solution: the float32 root controls of a cold 1-step farm on the
+   main path from the warm phase's states against the port's own float64
+   solve on the CPU (composed iteration, tol 1e-5) for 2 lanes, and the
+   controls of 4d and 4e at the same states against the same solve;
 6. where the time goes: ``torch.profiler`` over 10 warm farm iterations of
-   the fused path (device time per iteration, kernels per iteration, the top
-   kernels).
+   the main path (device time per iteration, kernels per iteration, the
+   step kernel's share, the top kernels).
 
 The last lines are the card, one JSON object with a row per kernel, and the
 result line ``{"ok": true, "device": {...}}``.  Numbers also go to
@@ -41,6 +49,7 @@ result line ``{"ok": true, "device": {...}}``.  Numbers also go to
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -67,6 +76,18 @@ CONTROLS_TOL = 1e-4  # BASELINE.json: f32 root controls vs a float64 solve
 # exact solution, and 10 tol marks a wrong answer
 SOLVE_CONTROLS_TOL = 10 * TOL
 KERNEL_RTOL = 1e-5  # max|kernel - plain| <= 1e-5 (1 + scale) per output
+# the step kernel in float64 against its plain version: every output within
+# 1e-9 (1 + scale); in float32 its K1/K2 decisions are compared instead
+STEP_RTOL64 = 1e-9
+# except the Anderson weights (output slots 10-12): near convergence the
+# regularised 3x3 Gram's condition number reaches ~1e10, so float64 sums in
+# another order move the weights by up to ~1e-6 of their size; their effect
+# on the step is held at STEP_RTOL64 through z_new, w and the other outputs
+STEP_WEIGHTS_RTOL64 = 1e-5
+# fused iterations from the main path's final state before the step is
+# held: its warm solves mostly converge in 1-2 iterations, so after one most
+# lanes are still active, as on the farm right after a refill
+STEP_ITERS = 1
 TIMING_REPS = 50
 SPIN_CYCLES = 20_000_000  # ~10 ms at the H100's clocks: longer than any enqueue
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -84,6 +105,12 @@ SWEEP_KERNELS = {  # wrapper -> (source, the TPU kernel it replaces)
         "spock_tpu_torch/csrc/metric_apply.cu",
         "spock_tpu/ops/pallas_sweep.py:1174::metric_apply_fused"),
 }
+STEP_SOURCE = "spock_tpu_torch/csrc/sp_step.cu"
+STEP_ROWS = {  # row -> the TPU kernel whose function it holds
+    "sp_step_fused": "spock_tpu/ops/pallas_spstep.py:1340::sp_step_fused",
+    "sp_step_fused_tau1":
+        "spock_tpu/ops/pallas_spstep_lt.py:1093::sp_step_fused",
+}
 
 
 def check(cond, msg):
@@ -100,7 +127,7 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def time_ms(fn, reps=TIMING_REPS, warmup=5):
+def time_ms(fn, reps=TIMING_REPS, warmup=5, spin=SPIN_CYCLES):
     """Median device milliseconds of ``fn()`` over ``reps`` CUDA-event timed
     calls.  A spin kernel queued ahead of each start event keeps the card
     busy while the host enqueues ``fn``, so the host's launch cost stays out
@@ -111,7 +138,7 @@ def time_ms(fn, reps=TIMING_REPS, warmup=5):
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin)
         start.record()
         fn()
         end.record()
@@ -131,27 +158,39 @@ def nbytes_of(tensors):
     return sum(a.numel() * a.element_size() for a in tensors)
 
 
-def hold(name, got, ref, scales=None):
+def abs_err(got, ref) -> float:
+    """max|got - ref|, where equal values (infinities too) differ by 0."""
+    return float(torch.where(got == ref, 0.0, (got - ref).abs()).max())
+
+
+def hold(name, got, ref, scales=None, rtol=KERNEL_RTOL):
     """max|kernel - plain| over the output leaves; each must lie within
-    KERNEL_RTOL (1 + scale), scale = max|plain| unless given."""
+    rtol (1 + scale), scale = max|plain| unless given."""
     from spock_tpu_torch.zv import leaves
 
     got, ref = leaves(got), leaves(ref)
     check(len(got) == len(ref), f"{name}: {len(got)} outputs, plain {len(ref)}")
     max_err = 0.0
     for i, (g, r) in enumerate(zip(got, ref)):
-        check(bool(torch.isfinite(g).all()), f"{name}: output {i} not finite")
-        err = float((g - r).abs().max())
-        scale = (scales or {}).get(i, float(r.abs().max()))
-        check(err <= KERNEL_RTOL * (1.0 + scale),
+        # an infinite output (the step's r_safe of a lane that never took
+        # K1) must equal the plain version's
+        check(bool((torch.isfinite(g) | (g == r)).all()),
+              f"{name}: output {i} not finite")
+        err = abs_err(g, r)
+        finite = r[torch.isfinite(r)]
+        scale = (scales or {}).get(
+            i, float(finite.abs().max()) if finite.numel() else 0.0)
+        check(err <= rtol * (1.0 + scale),
               f"{name} kernel disagrees on output {i}: {err} > "
-              f"{KERNEL_RTOL} * (1 + {scale})")
+              f"{rtol} * (1 + {scale})")
         max_err = max(max_err, err)
     return max_err
 
 
 def kernel_row(name, source, replaces, max_err, kernel_ms, plain_ms,
                nbytes, ops, card):
+    """One row of the ``kernels`` line; its launches are filled in from the
+    path that runs it."""
     bound_ms, bound_by = bound(nbytes, ops)
     print(f"[kernel] {name} B={B} max_abs_err={max_err:.3e} kernel "
           f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
@@ -289,27 +328,167 @@ def sweep_kernel_checks(data, meta, card):
     return rows
 
 
-def launch_counts():
-    from spock_tpu_torch.ops import cuda_kernels, sweep_kernels
+def step_carry(data, meta, res2, opts):
+    """The fused-step carry STEP_ITERS iterations into a solve from the
+    farm's final state (its plant states, warm z and v): a real carry, with
+    lanes of every kind (cached or not, done or not)."""
+    from spock_tpu_torch.algorithms import supermann as sp
 
-    return dict(sweep_kernels.LAUNCHES, prox_h_conj=cuda_kernels.LAUNCHES)
+    c = sp.sp_init_fused(meta, res2.xs, res2.z, res2.v, opts)
+    bodies = [sp.sp_body_fused(data, meta, TOL, opts, phase=ph)
+              for ph in range(3)]
+    for k in range(STEP_ITERS):
+        c = bodies[k % 3](c)
+    return c
+
+
+def step_bytes_ops(meta, args, out, consts):
+    """Bytes the step must move (each input read once, each output written
+    once; a lane reads the cache pair only when its cache flag is set) and
+    its floating-point operations (the fresh sweep only for lanes without a
+    cache, the candidate sweep, and ~40 operations per value of the pair for
+    the residual, the Gram sums, the direction and the commit)."""
+    from spock_tpu_torch.ops import spstep
+    from spock_tpu_torch.zv import leaves
+
+    scal = args[10]
+    cached = float((scal[:, spstep.SC_CACHE] > 0).double().mean())
+    pair_bytes = nbytes_of(leaves(args[:2]))
+    nbytes = (nbytes_of(leaves(args)) - (1.0 - cached) * pair_bytes
+              + nbytes_of(leaves(out)) + nbytes_of(consts))
+    per_lane = ((1.0 - cached) * sweep_ops(meta, True, False)
+                + sweep_ops(meta, True, True) + 40 * (meta.nz + meta.nv))
+    return nbytes, B * per_lane
+
+
+def step_kernel_checks(data, meta, spec, res2, card, opts):
+    """Phase 3, step rows: sp_step_fused against sp_step_ref on a real carry
+    at B lanes.  The tau = 1 launch with the carry's cache flags (the
+    function of the lane-tiled TPU kernel, #7) and a retrial launch with no
+    cache and tau = beta^k by lane (#6) are held in float64 and timed in
+    float32, where the K1/K2 decisions of kernel and plain version are
+    compared lane by lane.  Also times the tau = 1 launch with every lane
+    cached and with none."""
+    from spock_tpu_torch import build
+    from spock_tpu_torch.algorithms import supermann as sp
+    from spock_tpu_torch.ops import spstep, sweep_kernels
+    from spock_tpu_torch.problem import step_size
+    from spock_tpu_torch.zv import leaves, tmap
+
+    c = step_carry(data, meta, res2, opts)
+    phase = c.it % 3
+    act = ~c.done
+    ones = torch.ones_like(c.r_safe)
+    no_cache = torch.zeros_like(c.cache_valid)
+    lanes = torch.arange(B, device=c.r_safe.device)
+    tau_bt = opts.beta ** (1 + lanes % 4).to(c.r_safe.dtype)
+    cases = {"sp_step_fused_tau1": (c.cache_valid, ones),
+             "sp_step_fused": (no_cache, tau_bt)}
+    knobs = dict(c1=opts.c1, sigma_k2=opts.sigma_k2, lam=opts.lam,
+                 lam_sp=opts.lam_sp)
+    g = step_size(data)
+    data64, meta64 = build(spec, dtype=torch.float64)
+    g64 = step_size(data64)
+    consts = sweep_kernels._consts(data, meta)
+    rows, extra = [], {}
+    for name, (cache, tau) in cases.items():
+        args = sp.step_inputs(c, opts, phase, act, cache, c.r_safe, tau)
+        args64 = tmap(lambda a: a.double(), args)
+        got64 = spstep.sp_step_fused(data64, meta64, *args64, g64, g64,
+                                     **knobs)
+        torch.cuda.synchronize()
+        ref64 = spstep.sp_step_ref(data64, meta64, *args64, g64, g64, **knobs)
+        check(bool((got64[6][:, :3] == ref64[6][:, :3]).all()),
+              f"{name}: float64 K1/K2 decisions differ from the plain version")
+        max_err = hold(name, got64[:6], ref64[:6], rtol=STEP_RTOL64)
+        slot_err = []
+        for j in range(spstep.OC_G2 + 1):
+            rtol = (STEP_WEIGHTS_RTOL64 if j >= spstep.OC_G0
+                    else STEP_RTOL64)
+            slot_err.append(hold(f"{name} output slot {j}", got64[6][:, j],
+                                 ref64[6][:, j], rtol=rtol))
+        max_err = max(max_err, *slot_err)
+
+        def kernel(args=args):
+            return spstep.sp_step_fused(data, meta, *args, g, g, **knobs)
+
+        def plain(args=args):
+            return spstep.sp_step_ref(data, meta, *args, g, g, **knobs)
+
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        agree = (got[6][:, :3] == ref[6][:, :3]).all(dim=1)
+        # values: the six pairs and slots 0-9; the Anderson weights apart
+        # (float32 sums in another order move ill-conditioned weights far)
+        err32 = max(abs_err(a[agree], b[agree])
+                    for a, b in zip(leaves(got[:6]) + [got[6][:, :10]],
+                                    leaves(ref[:6]) + [ref[6][:, :10]]))
+        err32_w = abs_err(got[6][agree, 10:13], ref[6][agree, 10:13])
+        check(not math.isnan(err32), f"{name}: float32 outputs disagree")
+        decisions = ref[6][:, :3].sum(0).tolist()
+        extra[name] = dict(
+            f64_slot_max_abs_err=slot_err,
+            f32_decisions_agree=int(agree.sum()), lanes=B,
+            f32_max_abs_err_agreeing=err32,
+            f32_weights_max_abs_err_agreeing=err32_w,
+            plain_k1_k2_loop=decisions,
+            cached_lanes=int((cache > 0).sum()), active_lanes=int(act.sum()))
+        print(f"[step] {name}: float64 max_abs_err {max_err:.3e} (limit "
+              f"{STEP_RTOL64} (1 + scale), Anderson weights "
+              f"{STEP_WEIGHTS_RTOL64}); by output slot "
+              f"{', '.join(f'{e:.1e}' for e in slot_err)}; float32 "
+              f"decisions agree on "
+              f"{int(agree.sum())}/{B} lanes (plain K1/K2/loop "
+              f"{decisions}), max_abs_err on them {err32:.3e} (Anderson "
+              f"weights {err32_w:.3e}); "
+              f"{int((cache > 0).sum())} cached, {int(act.sum())} active "
+              f"lanes [{card}]", flush=True)
+        nbytes, ops = step_bytes_ops(meta, args, got, consts)
+        rows.append(kernel_row(name, STEP_SOURCE, STEP_ROWS[name], max_err,
+                               time_ms(kernel),
+                               time_ms(plain, spin=4 * SPIN_CYCLES), nbytes,
+                               ops, card))
+    # the per-lane fresh-sweep skip: the launch at tau = 1 with every lane
+    # cached and with none
+    skip = {}
+    for label, flag in (("all_cached", True), ("none_cached", False)):
+        args = sp.step_inputs(c, opts, phase, act,
+                              torch.full_like(c.cache_valid, flag), c.r_safe,
+                              ones)
+        skip[label] = time_ms(
+            lambda args=args: spstep.sp_step_fused(data, meta, *args, g, g,
+                                                   **knobs))
+    skip["carry_flags"] = rows[0]["ms"]
+    extra["cache_skip_ms"] = skip
+    print(f"[step] tau = 1 launch: {skip['carry_flags']:.4f} ms with the "
+          f"carry's cache flags, {skip['all_cached']:.4f} ms with every lane "
+          f"cached, {skip['none_cached']:.4f} ms with none [{card}]",
+          flush=True)
+    return rows, extra
+
+
+def launch_counts():
+    from spock_tpu_torch.ops import cuda_kernels, spstep, sweep_kernels
+
+    return dict(sweep_kernels.LAUNCHES, **spstep.LAUNCHES,
+                prox_h_conj=cuda_kernels.LAUNCHES)
 
 
 def reset_counts():
-    from spock_tpu_torch.ops import cuda_kernels, sweep_kernels
+    from spock_tpu_torch.ops import cuda_kernels, spstep, sweep_kernels
 
     cuda_kernels.LAUNCHES = 0
-    for k in sweep_kernels.LAUNCHES:
-        sweep_kernels.LAUNCHES[k] = 0
+    for counts in (sweep_kernels.LAUNCHES, spstep.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
-def farm(data, meta, x0, ws, card, device, fused_sweep, warm_steps):
-    """Phase 4a/4b: cold then warm async farm, with the launch counts set to
-    0 just before and read just after.  Returns the warm result, the numbers
-    of the run and the counts."""
+def farm(data, meta, x0, ws, card, device, label, warm_steps, **path):
+    """Phase 4a-4c: cold then warm async farm on the path given by the
+    ``fused_sweep``/``fused_step`` switches in ``path``, with the launch
+    counts set to 0 just before and read just after.  Returns both results,
+    the numbers of the run and its farm iterations."""
     from spock_tpu_torch import mpc
-
-    label = "fused" if fused_sweep else "composed"
 
     def sync():
         if device.type == "cuda":
@@ -318,8 +497,7 @@ def farm(data, meta, x0, ws, card, device, fused_sweep, warm_steps):
     reset_counts()
     t0 = time.perf_counter()
     res1 = mpc.simulate_async(data, meta, x0, ws, TOL, n_steps=COLD_STEPS,
-                              max_total_iters=COLD_CAP, device=device,
-                              fused_sweep=fused_sweep)
+                              max_total_iters=COLD_CAP, device=device, **path)
     sync()
     cold_s = time.perf_counter() - t0
     check(bool((res1.steps_done == COLD_STEPS).all()),
@@ -328,7 +506,7 @@ def farm(data, meta, x0, ws, card, device, fused_sweep, warm_steps):
     t0 = time.perf_counter()
     res2 = mpc.simulate_async(data, meta, res1.xs, ws, TOL, n_steps=warm_steps,
                               max_total_iters=WARM_CAP, z0=res1.z, v0=res1.v,
-                              device=device, fused_sweep=fused_sweep)
+                              device=device, **path)
     sync()
     warm_s = time.perf_counter() - t0
     counts = launch_counts()
@@ -367,9 +545,9 @@ def farm(data, meta, x0, ws, card, device, fused_sweep, warm_steps):
 
 
 def solution_check(data, meta, spec, xs, ws, card, device):
-    """Phase 5: f32 root controls of a cold 1-step fused farm against the
-    port's float64 CPU solve (plain versions).  Returns the error and the
-    reference controls."""
+    """Phase 5: f32 root controls of a cold 1-step farm on the main path
+    against the port's float64 CPU solve (plain versions, composed
+    iteration).  Returns the error and the reference controls."""
     from spock_tpu_torch import build, mpc
     from spock_tpu_torch.solver import Solver
 
@@ -379,7 +557,7 @@ def solution_check(data, meta, spec, xs, ws, card, device):
     u_f32 = res.us[0, :CHECK_LANES].double().cpu().numpy()
     data64, meta64 = build(spec, dtype=torch.float64, device="cpu")
     ref = Solver(data64, meta64, algorithm="spock", max_iter=5000,
-                 device="cpu").solve(
+                 device="cpu", fused_step=False).solve(
         xs[:CHECK_LANES].double().cpu(), tol=1e-5)
     check(bool(ref.converged.all()), "float64 CPU reference did not converge")
     u_ref = ref.z.u[:, :, 0].numpy()
@@ -392,7 +570,7 @@ def solution_check(data, meta, spec, xs, ws, card, device):
 
 
 def solver_run(data, meta, res2, card, label, kernel, **solver_kw):
-    """Phase 4c/4d: a Solver run warm-started from SOLVE_LANES lanes of the
+    """Phase 4d/4e: a Solver run warm-started from SOLVE_LANES lanes of the
     farm's final state, at the farm's final plant states, with the launch
     counts set to 0 just before and read just after.  Returns its numbers
     and the root controls of its first CHECK_LANES lanes."""
@@ -427,7 +605,7 @@ def solver_run(data, meta, res2, card, label, kernel, **solver_kw):
 
 def profile_farm(data, meta, res2, ws, card, wall_ms_per_iter):
     """Phase 6: device time and kernel mix of PROFILE_ITERS warm farm
-    iterations on the fused path (a measurement: a profiler that sees no
+    iterations on the main path (a measurement: a profiler that sees no
     device time reports "not measured")."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -459,16 +637,21 @@ def profile_farm(data, meta, res2, ws, card, wall_ms_per_iter):
         return None
     top = [dict(name=k[2][:80], ms_per_iter=k[0] / 1e3 / iters,
                 calls_per_iter=k[1] / iters) for k in kernels[:8]]
-    sweep_ms = sum(k[0] for k in kernels if "cp_sweep_kernel" in k[2]) / 1e3 / iters
+    step = [k for k in kernels if "sp_step_kernel" in k[2]]
+    step_ms = sum(k[0] for k in step) / 1e3 / iters
+    step_calls = sum(k[1] for k in step) / iters
     out = dict(device_ms_per_iter=device_ms,
                device_kernels_per_iter=launches,
                wall_ms_per_iter_unprofiled=wall_ms_per_iter,
                device_busy_share=device_ms / wall_ms_per_iter,
-               sweep_kernel_ms_per_iter=sweep_ms, top=top)
-    print(f"[profile] fused farm, per farm iteration: device {device_ms:.3f} "
-          f"ms in {launches:.0f} kernels, wall {wall_ms_per_iter:.2f} ms -> "
-          f"device busy {100 * out['device_busy_share']:.1f}%; sweep kernel "
-          f"{sweep_ms:.3f} ms [{card}]", flush=True)
+               step_kernel_ms_per_iter=step_ms,
+               step_kernel_calls_per_iter=step_calls, top=top)
+    print(f"[profile] main-path farm, per farm iteration: device "
+          f"{device_ms:.3f} ms in {launches:.1f} kernels, wall "
+          f"{wall_ms_per_iter:.2f} ms -> device busy "
+          f"{100 * out['device_busy_share']:.1f}%; sp_step kernel "
+          f"{step_ms:.3f} ms in {step_calls:.2f} launches [{card}]",
+          flush=True)
     for t in top:
         print(f"[profile]   {t['ms_per_iter']:.3f} ms/iter "
               f"{t['calls_per_iter']:.1f} calls/iter  {t['name']}",
@@ -512,40 +695,65 @@ def main():
     kernels += sweep_kernel_checks(data, meta, card)
     rows = {k["name"]: k for k in kernels}
 
-    # ---- 4a. the main path: the farm on the fused sweep ----
+    # ---- 4a. the main path: the farm on the fused step ----
     rng = np.random.default_rng(0)
     x0 = torch.tensor(rng.uniform(-0.6, 0.6, (B, meta.nx)),
                       dtype=torch.float32, device=device)
     ws = torch.tensor(rng.integers(0, D, size=(COLD_STEPS + WARM_STEPS, B)),
                       device=device)
     res1, res2, nums, farm_iters = farm(data, meta, x0, ws, card, device,
-                                        True, WARM_STEPS)
+                                        "fused-step", WARM_STEPS)
     counts = nums["launches"]
-    check(counts["cp_sweep_metric_fused"] >= 1,
-          "the fused farm never launched cp_sweep_metric_fused")
-    check(counts["candidate_sweep_fused"] >= farm_iters,
-          f"candidate_sweep_fused launched {counts['candidate_sweep_fused']} "
-          f"times in {farm_iters} farm iterations")
-    for name in ("cp_sweep_metric_fused", "candidate_sweep_fused"):
-        rows[name]["launches"] = counts[name]
+    check(counts["sp_step_fused"] >= farm_iters,
+          f"sp_step_fused launched {counts['sp_step_fused']} times in "
+          f"{farm_iters} farm iterations")
+    others = {k: c for k, c in counts.items() if k != "sp_step_fused"}
+    check(not any(others.values()),
+          f"the fused-step farm launched other kernels: {others}")
+    nums["retrials_per_farm_iteration"] = (
+        counts["sp_step_fused"] - farm_iters) / farm_iters
 
-    # ---- 4b. the composed path (fused_sweep=False): the prox_h* kernel ----
-    _, _, cnums, c_iters = farm(data, meta, x0, ws, card, device, False,
-                                WARM_STEPS)
+    # ---- 3, step rows: the step kernel on a real carry ----
+    opts = SuperMannOpts()
+    step_rows, step_extra = step_kernel_checks(data, meta, spec, res2, card,
+                                               opts)
+    step_rows[0]["launches"] = farm_iters  # one tau = 1 launch per iteration
+    step_rows[1]["launches"] = counts["sp_step_fused"]
+    kernels += step_rows
+
+    # ---- 4b. the fused sweep (fused_step=False): kernels #3 and #4 ----
+    _, _, snums, s_iters = farm(data, meta, x0, ws, card, device,
+                                "fused-sweep", WARM_STEPS, fused_step=False)
+    scounts = snums["launches"]
+    check(scounts["cp_sweep_metric_fused"] >= 1,
+          "the fused-sweep farm never launched cp_sweep_metric_fused")
+    check(scounts["candidate_sweep_fused"] >= s_iters,
+          f"candidate_sweep_fused launched {scounts['candidate_sweep_fused']} "
+          f"times in {s_iters} farm iterations")
+    check(scounts["sp_step_fused"] == 0,
+          "the fused-sweep farm launched sp_step_fused")
+    for name in ("cp_sweep_metric_fused", "candidate_sweep_fused"):
+        rows[name]["launches"] = scounts[name]
+
+    # ---- 4c. the composed path (fused_sweep=False): the prox_h* kernel ----
+    _, _, cnums, c_iters = farm(data, meta, x0, ws, card, device, "composed",
+                                WARM_STEPS, fused_sweep=False)
     launches = cnums["launches"]["prox_h_conj"]
     check(launches >= c_iters,
           f"prox_h_conj kernel launched {launches} times in {c_iters} farm "
           "iterations")
-    check(sum(cnums["launches"][k] for k in SWEEP_KERNELS) == 0,
-          "the composed path launched a sweep kernel")
+    check(sum(cnums["launches"][k] for k in cnums["launches"]
+              if k != "prox_h_conj") == 0,
+          "the composed path launched a sweep or step kernel")
     rows["prox_h_conj"]["launches"] = launches
-    print(f"[paths] ms per farm iteration: fused "
-          f"{nums['ms_per_farm_iteration']:.2f}, composed "
-          f"{cnums['ms_per_farm_iteration']:.2f}; solves/s: fused "
-          f"{nums['solves_per_s']:.2f}, composed {cnums['solves_per_s']:.2f} "
-          f"[{card}]", flush=True)
+    print(f"[paths] ms per farm iteration: fused step "
+          f"{nums['ms_per_farm_iteration']:.2f}, fused sweep "
+          f"{snums['ms_per_farm_iteration']:.2f}, composed "
+          f"{cnums['ms_per_farm_iteration']:.2f}; solves/s: "
+          f"{nums['solves_per_s']:.2f}, {snums['solves_per_s']:.2f}, "
+          f"{cnums['solves_per_s']:.2f} [{card}]", flush=True)
 
-    # ---- 4c/4d. the Solver's paths: cp_sweep_fused, metric_apply_fused ----
+    # ---- 4d/4e. the Solver's paths: cp_sweep_fused, metric_apply_fused ----
     cp, u_cp = solver_run(data, meta, res2, card, "cp solve",
                           "cp_sweep_fused", algorithm="cp", max_iter=CP_CAP)
     rows["cp_sweep_fused"]["launches"] = cp["launches"]["cp_sweep_fused"]
@@ -565,6 +773,8 @@ def main():
               flush=True)
         check(nums_["controls_err"] <= SOLVE_CONTROLS_TOL,
               f"{label}: controls {nums_['controls_err']} from the f64 solve")
+    check(all(k["launches"] for k in kernels),
+          "a kernel row has no launches on its path")
 
     # ---- 6. where the time goes ----
     prof = profile_farm(data, meta, res2, ws, card,
@@ -574,7 +784,8 @@ def main():
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, torch=torch.__version__,
                        cuda=torch.version.cuda, build_s=build_s,
-                       kernels=kernels, fused_farm=nums, composed_farm=cnums,
+                       kernels=kernels, step=step_extra, fused_step_farm=nums,
+                       fused_sweep_farm=snums, composed_farm=cnums,
                        cp_solve=cp, broyden_solve=broyden,
                        controls_max_err=err, profile=prof), f, indent=1)
     print(card, flush=True)

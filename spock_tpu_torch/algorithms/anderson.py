@@ -19,7 +19,17 @@ from ..zv import leaves, tmap
 
 def _solve3(A, b):
     """Closed-form batched 3x3 solve via the adjugate (Cramer).
-    A: [B, 3, 3], b: [B, 3]."""
+    A: [B, 3, 3], b: [B, 3].
+
+    The system is first scaled to entries of magnitude <= 1 (the solution
+    does not change): the adjugate multiplies three entries, and for the
+    small Gram of a lane near convergence (one valid row and the 1e-10
+    regularisation) the float32 determinant falls below the normal range,
+    so 1 / det overflows and the direction becomes inf or NaN."""
+    s = A.abs().amax(dim=(1, 2))
+    s = torch.where(s > 0, s, torch.ones_like(s))
+    A = A / s[:, None, None]
+    b = b / s[:, None]
     a, bb, c = A[:, 0, 0], A[:, 0, 1], A[:, 0, 2]
     d, e, f = A[:, 1, 0], A[:, 1, 1], A[:, 1, 2]
     g, h, i = A[:, 2, 0], A[:, 2, 1], A[:, 2, 2]

@@ -18,6 +18,13 @@ sweep where the sweep kernels cover the problem (``common.cp_sweep_metric``,
 ``candidate_sweep``, ``metric_pair``), the composed path of PyTorch operators
 and the prox_h* kernel otherwise or when False.  It is the counterpart of the
 JAX package's ``SPOCK_PALLAS_SWEEP``, given as an argument.
+
+``fused_step`` (default True) takes the whole iteration into one kernel
+launch (``ops.spstep.sp_step_fused``) where :func:`use_fused_step` holds:
+Anderson window 3, no K0, the fused sweep, a problem the kernels cover.  Its
+carry is :class:`SPCarryF`, driven by :func:`sp_body_fused` in a 3-phase
+unroll; backtracking relaunches the same kernel at the shrunken per-lane tau.
+It is the counterpart of the JAX package's ``SPOCK_FUSED_STEP``.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ from typing import Any
 
 import torch
 
-from ..ops import sweep_kernels
+from ..ops import spstep, sweep_kernels
 from ..problem import ProblemData, ProblemMeta, step_size
 from ..zv import Dual, Primal, leaves, lincomb, sub, tmap
 from . import anderson, broyden
@@ -380,16 +387,187 @@ def sp_body(data: ProblemData, meta: ProblemMeta, tol,
     return body
 
 
+# ---------------------------------------------------------------------------
+# The fused step: one sp_step_fused launch per iteration (plus one per
+# backtracking retrial)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SPCarryF:
+    """Carry of the fused step.  The Anderson window is three row pairs in
+    phase slots: the row written at iteration t lives in slot t mod 3, so a
+    row that only ages passes through untouched and no history is copied.
+    There is no ``eta``: K0 is off on this path."""
+
+    x0: Any  # [B, nx]
+    z: Primal
+    v: Dual
+    cache: Any  # (Primal, Dual): the last tau=1 candidate's sweep
+    r_prev: Any  # (Primal, Dual)
+    s_prev: Any  # (Primal, Dual)
+    MR: Any  # 3 (Primal, Dual) pairs: y rows by phase slot
+    MP: Any  # 3 (Primal, Dual) pairs: p rows by phase slot
+    r_safe: Any  # [B]
+    res0: Any  # [B, 2]
+    done: Any  # [B] bool
+    niter: Any  # [B] int32
+    xi1: Any  # [B]
+    xi2: Any  # [B]
+    it: int  # iterations run on this carry; the phase is it mod 3
+    cache_valid: Any  # [B] bool: per lane, the cache is the sweep at (z, v)
+    rnorm_c: Any  # [B] the cache's ||r||_M and inf-norms of M r
+    nMrz_c: Any
+    nMrv_c: Any
+
+
+def root_u_carry(sp):
+    """Root input u_1 from either carry flavor (read by the MPC farm)."""
+    return sp.z.u[:, :, 0]
+
+
+def use_fused_step(data: ProblemData, meta: ProblemMeta, opts: SuperMannOpts,
+                   fused_sweep: bool = True, fused_step: bool = True) -> bool:
+    """The fused step covers the production configuration: Anderson window 3,
+    no K0, the fused sweep, and a problem class the kernels cover."""
+    return (fused_step and fused_sweep and opts.direction == "anderson"
+            and not opts.k0 and opts.aa_window == 3
+            and spstep.supported(meta, data))
+
+
+def sp_init_fused(meta: ProblemMeta, x0, z0: Primal, v0: Dual,
+                  opts: SuperMannOpts = SuperMannOpts()) -> SPCarryF:
+    """The initial fused-step carry for a batch of lanes."""
+    B = x0.shape[0]
+    dtype, device = x0.dtype, x0.device
+
+    def full(value, dt=dtype):
+        return torch.full((B,), value, dtype=dt, device=device)
+
+    zpair = (tmap(torch.zeros_like, z0), tmap(torch.zeros_like, v0))
+    return SPCarryF(
+        x0=x0, z=z0, v=v0, cache=zpair, r_prev=zpair, s_prev=zpair,
+        MR=(zpair,) * 3, MP=(zpair,) * 3,
+        r_safe=full(float("inf")),
+        res0=torch.full((B, 2), float("-inf"), dtype=dtype, device=device),
+        done=full(False, torch.bool),
+        niter=full(0, torch.int32),
+        xi1=full(float("inf")),
+        xi2=full(float("inf")),
+        it=0,
+        cache_valid=full(False, torch.bool),
+        rnorm_c=full(0.0), nMrz_c=full(0.0), nMrv_c=full(0.0),
+    )
+
+
+def step_inputs(c: SPCarryF, opts: SuperMannOpts, phase: int, act, cache,
+                r_safe, tau) -> tuple:
+    """The arguments of ``spstep.sp_step_fused`` from ``z`` to the scalar
+    pack, for a launch at history phase ``phase`` with the per-lane flags
+    ``act``, ``cache`` and values ``r_safe``, ``tau``."""
+    dtype, device = c.r_safe.dtype, c.r_safe.device
+    m = opts.aa_window
+    a1, a2 = (phase - 1) % m, (phase - 2) % m
+    q_pow = torch.pow(torch.tensor(opts.q, dtype=dtype, device=device),
+                      c.niter.to(dtype))
+    scal = torch.stack(
+        [act.to(dtype), (c.niter >= 1).to(dtype), (c.niter >= 2).to(dtype),
+         cache.to(dtype), r_safe, q_pow, c.rnorm_c, c.nMrz_c, c.nMrv_c, tau],
+        dim=-1)
+    return (c.z, c.v, c.cache, c.r_prev, c.s_prev, c.MR[a1], c.MR[a2],
+            c.MP[a1], c.MP[a2], c.x0, scal)
+
+
+def sp_body_fused(data: ProblemData, meta: ProblemMeta, tol,
+                  opts: SuperMannOpts, phase: int, gamma=None, sigma=None):
+    """One fused SuperMann iteration at history phase ``phase`` (= it mod
+    3): carry -> carry.  The MR/MP slots of phase - 1 and phase - 2 are the
+    rows of age 1 and 2; the new rows go to slot ``phase``."""
+    if gamma is None or sigma is None:
+        gamma = sigma = step_size(data)
+    tol = float(tol)
+    m = opts.aa_window
+
+    def body(c: SPCarryF) -> SPCarryF:
+        B = c.done.shape[0]
+        dtype, device = c.r_safe.dtype, c.r_safe.device
+        active = ~c.done
+
+        def step(act, cache, r_safe, tau):
+            return spstep.sp_step_fused(
+                data, meta, *step_inputs(c, opts, phase, act, cache, r_safe,
+                                         tau),
+                gamma, sigma, c1=opts.c1, sigma_k2=opts.sigma_k2,
+                lam=opts.lam, lam_sp=opts.lam_sp)
+
+        ones = torch.ones((B,), dtype=dtype, device=device)
+        z_new, w, r, s, y, p, sc = step(active, c.cache_valid, c.r_safe, ones)
+        k1_first = sc[:, spstep.OC_K1] > 0.5
+        looping = sc[:, spstep.OC_LOOP] > 0.5
+        r_safe = sc[:, spstep.OC_RSAFE]
+        xi1, xi2 = sc[:, spstep.OC_XI1], sc[:, spstep.OC_XI2]
+        # backtracking: relaunch the same kernel for the lanes still looping,
+        # with no cache and tau <- beta tau; phases 1-2 are recomputed (z has
+        # not moved), and only lanes that accept take the retrial's outputs
+        tau = torch.full((B,), opts.beta, dtype=dtype, device=device)
+        no_cache = torch.zeros((B,), dtype=torch.bool, device=device)
+        bt = 1
+        while bt <= opts.max_backtracks and bool(looping.any()):
+            z2, _, _, s2, _, _, sc2 = step(looping, no_cache, r_safe, tau)
+            acc = looping & ((sc2[:, spstep.OC_K1] > 0.5)
+                             | (sc2[:, spstep.OC_K2] > 0.5))
+            z_new = bwhere(acc, z2, z_new)
+            s = bwhere(acc, s2, s)
+            r_safe = torch.where(acc, sc2[:, spstep.OC_RSAFE], r_safe)
+            xi1 = torch.where(acc, sc2[:, spstep.OC_XI1], xi1)
+            xi2 = torch.where(acc, sc2[:, spstep.OC_XI2], xi2)
+            looping = looping & (sc2[:, spstep.OC_LOOP] > 0.5)
+            tau = torch.where(looping, tau * opts.beta, tau)
+            bt += 1
+
+        conv, res0 = check_termination(xi1, xi2, c.res0, tol)
+        return SPCarryF(
+            x0=c.x0,
+            z=z_new[0],
+            v=z_new[1],
+            cache=w,
+            r_prev=r,
+            s_prev=s,
+            MR=tuple(y if j == phase else c.MR[j] for j in range(m)),
+            MP=tuple(p if j == phase else c.MP[j] for j in range(m)),
+            r_safe=torch.where(active, r_safe, c.r_safe),
+            res0=torch.where(active[:, None], res0, c.res0),
+            done=c.done | (conv & active),
+            niter=c.niter + active.to(torch.int32),
+            xi1=torch.where(active, xi1, c.xi1),
+            xi2=torch.where(active, xi2, c.xi2),
+            it=c.it + 1,
+            cache_valid=k1_first | c.done | conv,
+            # the tau=1 candidate's ||r~|| is the next ||r|| when cached
+            rnorm_c=sc[:, spstep.OC_RT],
+            nMrz_c=sc[:, spstep.OC_NMRWZ],
+            nMrv_c=sc[:, spstep.OC_NMRWV],
+        )
+
+    return body
+
+
 def run_supermann(data: ProblemData, meta: ProblemMeta, x0, z0: Primal,
                   v0: Dual, tol, max_iter: int,
                   opts: SuperMannOpts = SuperMannOpts(), gamma=None,
-                  sigma=None, fused_sweep: bool = True) -> SolveResult:
+                  sigma=None, fused_sweep: bool = True,
+                  fused_step: bool = True) -> SolveResult:
     """Solve to tolerance from a warm start (z0, v0); batched [B, ...]."""
-    c = sp_init(meta, x0, z0, v0, opts)
-    body = sp_body(data, meta, tol, opts, gamma=gamma, sigma=sigma,
-                   fused_sweep=fused_sweep)
+    if use_fused_step(data, meta, opts, fused_sweep, fused_step):
+        c = sp_init_fused(meta, x0, z0, v0, opts)
+        bodies = [sp_body_fused(data, meta, tol, opts, phase=ph, gamma=gamma,
+                                sigma=sigma) for ph in range(3)]
+    else:
+        c = sp_init(meta, x0, z0, v0, opts)
+        bodies = [sp_body(data, meta, tol, opts, gamma=gamma, sigma=sigma,
+                          fused_sweep=fused_sweep)]
     while c.it < max_iter and not bool(c.done.all()):
-        c = body(c)
+        c = bodies[c.it % len(bodies)](c)
     return SolveResult(
         z=c.z,
         v=c.v,

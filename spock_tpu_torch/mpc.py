@@ -11,7 +11,9 @@ host loops here, with one device-to-host sync per farm iteration.
 
 ``fused_sweep`` chooses the CP sweep of the solvers (see
 :mod:`spock_tpu_torch.algorithms.supermann`): one kernel launch per sweep by
-default, the composed path when False.
+default, the composed path when False.  ``fused_step`` (default True) runs
+each SuperMann iteration as one kernel launch where the fused step covers the
+configuration (``supermann.use_fused_step``).
 """
 
 from __future__ import annotations
@@ -46,7 +48,8 @@ class MPCResult:
 def simulate(data: ProblemData, meta: ProblemMeta, x0, ws, tol,
              algorithm: str = "spock", max_iter: int = 1000,
              opts: sp_alg.SuperMannOpts = sp_alg.SuperMannOpts(),
-             device=None, fused_sweep: bool = True) -> MPCResult:
+             device=None, fused_sweep: bool = True,
+             fused_step: bool = True) -> MPCResult:
     """Closed-loop simulation.  x0: [B, nx] initial states; ws: [T, B] int
     realization indices; tol: solver tolerance per step."""
     device = check_device(data, device)
@@ -60,7 +63,8 @@ def simulate(data: ProblemData, meta: ProblemMeta, x0, ws, tol,
         if algorithm == "spock":
             res = sp_alg.run_supermann(data, meta, x, z, v, tol=tol,
                                        max_iter=max_iter, opts=opts,
-                                       fused_sweep=fused_sweep)
+                                       fused_sweep=fused_sweep,
+                                       fused_step=fused_step)
         else:
             res = cp_alg.run_cp(data, meta, x, z, v, tol=tol,
                                 max_iter=max_iter, fused_sweep=fused_sweep)
@@ -101,6 +105,7 @@ def simulate_async(
     v0=None,
     device=None,
     fused_sweep: bool = True,
+    fused_step: bool = True,
 ) -> AsyncMPCResult:
     """Asynchronous MPC farm of B lanes, each running ``n_steps`` warm-started
     solves of its own chain.
@@ -121,18 +126,27 @@ def simulate_async(
         z0 = zero_primal(meta, (B,), dtype, device)
     if v0 is None:
         v0 = zero_dual(meta, (B,), dtype, device)
-    sp = sp_alg.sp_init(meta, x0, z0, v0, opts)
-    body = sp_alg.sp_body(data, meta, tol, opts, fused_sweep=fused_sweep)
+    fused = sp_alg.use_fused_step(data, meta, opts, fused_sweep, fused_step)
+    if fused:
+        # one sp_step_fused launch per iteration, the history phase bound to
+        # the carry's iteration count
+        sp = sp_alg.sp_init_fused(meta, x0, z0, v0, opts)
+        bodies = [sp_alg.sp_body_fused(data, meta, tol, opts, phase=ph)
+                  for ph in range(3)]
+    else:
+        sp = sp_alg.sp_init(meta, x0, z0, v0, opts)
+        bodies = [sp_alg.sp_body(data, meta, tol, opts,
+                                 fused_sweep=fused_sweep)]
     lanes = torch.arange(B, device=device)
     step_idx = torch.zeros((B,), dtype=torch.int64, device=device)
     iters_rec = torch.zeros((T, B), dtype=torch.int32, device=device)
     us_rec = torch.zeros((T, B, meta.nu), dtype=dtype, device=device)
     total = 0
     while total < max_total_iters and bool((step_idx < n_steps).any()):
-        sp = body(sp)
+        sp = bodies[sp.it % len(bodies)](sp)
         # lanes whose current solve just converged and still have steps to do
         fin = sp.done & (step_idx < n_steps)
-        u0 = sp.z.u[:, :, 0]
+        u0 = sp_alg.root_u_carry(sp)
         row = torch.clamp(step_idx, max=T - 1)
         iters_rec[row, lanes] += torch.where(fin, sp.niter, 0).to(torch.int32)
         us_rec[row, lanes] += torch.where(fin[:, None], u0, 0.0)
@@ -142,27 +156,27 @@ def simulate_async(
         # Refill: the plant advances; res0, r_safe, eta and niter reset;
         # cache_valid is cleared (the cached sweep pinned the old x0).  The
         # Anderson memory needs no reset: niter = 0 masks the stale
-        # r_prev/s_prev reads, and the newest-first Anderson rows older than
-        # the current solve drop out by the j <= niter validity rule.  The
+        # r_prev/s_prev reads, and the Anderson rows older than the current
+        # solve drop out by their validity (row j of the newest-first history,
+        # or the row of age j of the fused carry, counts iff j <= niter).  The
         # Broyden ring is zeroed per lane.
-        dirstate = sp.dirstate
-        if opts.direction == "broyden":
-            dirstate = tmap(
-                lambda a: torch.where(
-                    fin.reshape(fin.shape + (1,) * (a.ndim - 1)),
-                    torch.zeros_like(a), a),
-                dirstate)
-        sp = dataclasses.replace(
-            sp,
+        repl = dict(
             x0=torch.where(fin[:, None], x_next, sp.x0),
             done=sp.done & ~(fin & (step_idx < n_steps)),
             res0=torch.where(fin[:, None], float("-inf"), sp.res0),
             r_safe=torch.where(fin, float("inf"), sp.r_safe),
-            eta=torch.where(fin, float("inf"), sp.eta),
             niter=torch.where(fin, 0, sp.niter).to(torch.int32),
             cache_valid=sp.cache_valid & ~fin,
-            dirstate=dirstate,
         )
+        if not fused:
+            repl["eta"] = torch.where(fin, float("inf"), sp.eta)
+        if opts.direction == "broyden":
+            repl["dirstate"] = tmap(
+                lambda a: torch.where(
+                    fin.reshape(fin.shape + (1,) * (a.ndim - 1)),
+                    torch.zeros_like(a), a),
+                sp.dirstate)
+        sp = dataclasses.replace(sp, **repl)
         total += 1
     return AsyncMPCResult(
         steps_done=step_idx,

@@ -78,7 +78,8 @@ class Solver:
     (plain Chambolle-Pock).  device: None means the card.  fused_sweep: one
     kernel launch per CP sweep where the sweep kernels cover the problem
     (default); False takes the composed path (PyTorch operators and the
-    prox_h* kernel)."""
+    prox_h* kernel).  fused_step: one kernel launch per SuperMann iteration
+    where ``supermann.use_fused_step`` holds (default)."""
 
     data: ProblemData
     meta: ProblemMeta
@@ -88,6 +89,7 @@ class Solver:
     supermann: Optional[sp_alg.SuperMannOpts] = None
     device: Optional[str] = None
     fused_sweep: bool = True
+    fused_step: bool = True
 
     def __post_init__(self):
         if self.algorithm not in ("spock", "cp"):
@@ -123,7 +125,8 @@ class Solver:
             res = sp_alg.run_supermann(self.data, self.meta, x0, z0, v0,
                                        tol=tol, max_iter=int(self.max_iter),
                                        opts=self.supermann,
-                                       fused_sweep=self.fused_sweep)
+                                       fused_sweep=self.fused_sweep,
+                                       fused_step=self.fused_step)
         if unbatched:
             res = tmap(lambda a: a[0], res)
         return res

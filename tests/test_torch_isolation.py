@@ -21,7 +21,8 @@ import spock_tpu_torch
 from spock_tpu_torch import build, mpc
 from spock_tpu_torch.models import server_heat
 from spock_tpu_torch.algorithms import common
-from spock_tpu_torch.ops import _build, cuda_kernels, linop, prox, sweep_kernels
+from spock_tpu_torch.ops import (
+    _build, cuda_kernels, linop, prox, spstep, sweep_kernels)
 from spock_tpu_torch.solver import Solver
 from spock_tpu_torch.zv import DUAL_BLOCKS, Dual, leaves
 
@@ -36,6 +37,7 @@ def test_import_and_solve_load_no_jax():
         "import sys, numpy as np, torch\n"
         "import spock_tpu_torch as st\n"
         "import spock_tpu_torch.ops.sweep_kernels\n"
+        "import spock_tpu_torch.ops.spstep\n"
         "import spock_tpu_torch.algorithms.broyden\n"
         "from spock_tpu_torch.models import car\n"
         "data, meta = st.build(car.make_spec(N=3, d=2), dtype=torch.float64,"
@@ -148,6 +150,19 @@ def test_sweep_wrappers_never_fall_back(cpu_problem, name):
         SWEEP_CALLS[name](getattr(sweep_kernels, name), data, meta, z, v, x0,
                           tau)
     assert sweep_kernels.LAUNCHES == before
+
+
+def test_step_wrapper_never_falls_back(cpu_problem):
+    """Tensors that are not on the CPU go to the step kernel or raise."""
+    data, meta = cpu_problem
+    pairs = [_meta_pair(meta, 2, torch.float64) for _ in range(8)]
+    x0 = torch.empty((2, meta.nx), dtype=torch.float64, device="meta")
+    scal = torch.empty((2, spstep.N_SC), dtype=torch.float64, device="meta")
+    before = dict(spstep.LAUNCHES)
+    with pytest.raises(ValueError, match="sp_step_fused kernel"):
+        spstep.sp_step_fused(data, meta, *pairs[0], *pairs[1:], x0, scal, 0.2,
+                             0.3, c1=0.99, sigma_k2=0.1, lam=1.0, lam_sp=1.0)
+    assert spstep.LAUNCHES == before
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
@@ -266,3 +281,59 @@ def test_sweep_kernel_matches_plain_version_on_the_card(name, dtype):
             assert err <= 1e-9, i
         else:
             assert err <= 1e-5 * (1 + float(r.abs().max())), i
+
+
+def _step_case(meta, dtype, B=4):
+    """Eight random pairs, x0 and a scalar pack with a mix of active, cached,
+    first-iteration and retrial lanes."""
+    rng = np.random.default_rng(1)
+
+    def pair():
+        return sweep_kernels._pair([
+            torch.tensor(rng.standard_normal(s), dtype=dtype, device="cuda")
+            for s in sweep_kernels.pair_shapes(meta, B)])
+
+    pairs = [pair() for _ in range(8)]
+    x0 = torch.tensor(rng.uniform(-0.5, 0.5, (B, meta.nx)), dtype=dtype,
+                      device="cuda")
+    scal = torch.tensor([[1, 0, 0, 0, np.inf, 1.0, 0, 0, 0, 1.0],
+                         [1, 1, 1, 1, 1e3, 0.9, 1e3, 0.5, 0.7, 1.0],
+                         [0, 1, 1, 1, 5.0, 0.8, 3.0, 0.5, 0.7, 1.0],
+                         [1, 1, 0, 0, 40.0, 0.7, 0, 0, 0, 0.25]],
+                        dtype=dtype, device="cuda")
+    return pairs, x0, scal
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_step_kernel_matches_plain_version_on_the_card(dtype):
+    """The SuperMann step kernel against sp_step_ref at a small size.
+    float64: every output within 1e-9 (1 + max|plain|).  float32: the K1 /
+    K2 / loop decisions of each lane, and on the lanes whose decisions agree
+    every output within 1e-4 (1 + max|plain|): two sweeps, the Gram sums and
+    the 3x3 solve in another order than PyTorch's, and a decision near its
+    threshold may flip in float32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    data, meta = build(server_heat.make_spec(N=4, nx=5, d=2), dtype=dtype)
+    pairs, x0, scal = _step_case(meta, dtype)
+    args = (data, meta, *pairs[0], *pairs[1:], x0, scal, 0.21, 0.37)
+    knobs = dict(c1=0.99, sigma_k2=0.1, lam=1.0, lam_sp=1.0)
+    before = spstep.LAUNCHES["sp_step_fused"]
+    got = spstep.sp_step_fused(*args, **knobs)
+    torch.cuda.synchronize()
+    assert spstep.LAUNCHES["sp_step_fused"] == before + 1
+    ref = spstep.sp_step_ref(*args, **knobs)
+    agree = (got[6][:, :3] == ref[6][:, :3]).all(dim=1)
+    if dtype == torch.float64:
+        assert bool(agree.all())
+    else:
+        assert int(agree.sum()) >= 3
+    rtol = 1e-9 if dtype == torch.float64 else 1e-4
+    for i, (g, r) in enumerate(zip(leaves(got), leaves(ref))):
+        g, r = g[agree], r[agree]
+        # r_safe stays inf on a lane that never took K1: equal values agree
+        err = torch.where(g == r, 0.0, (g - r).abs())
+        assert not bool(err.isnan().any()), i
+        scale = float(r[torch.isfinite(r)].abs().max())
+        assert float(err.max()) <= rtol * (1 + scale), i

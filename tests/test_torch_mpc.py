@@ -34,35 +34,39 @@ def _inputs(seed, nx, d):
     return rng.uniform(-0.5, 0.5, (B, nx)), rng.integers(0, d, (T, B))
 
 
-def test_simulate_async_matches_jax(problem):
+@pytest.mark.parametrize("fused_step", [False, True])
+def test_simulate_async_matches_jax(problem, fused_step):
     jdata, jmeta, pdata, pmeta = problem
     x0, ws = _inputs(2, jmeta.nx, jmeta.tree.d)
     ref = jmpc.simulate_async(jdata, jmeta, jnp.asarray(x0), jnp.asarray(ws),
                               tol=1e-4, n_steps=T)
     got = mpc.simulate_async(pdata, pmeta, x0, ws, tol=1e-4, n_steps=T,
-                             device="cpu")
+                             device="cpu", fused_step=fused_step)
     assert bool((got.steps_done == T).all())
     np.testing.assert_allclose(got.us.numpy(), np.asarray(ref.us), atol=1e-3)
     np.testing.assert_allclose(got.xs.numpy(), np.asarray(ref.xs), atol=5e-3)
 
 
-def test_farm_lane_equals_standalone_warm_solves(problem):
+@pytest.mark.parametrize("fused_step", [False, True])
+def test_farm_lane_equals_standalone_warm_solves(problem, fused_step):
     """Per-solve iteration counts and applied controls of the farm EXACTLY
     equal a sequence of standalone warm-started solves: a refill resets the
-    per-solve state, and the newest-first Anderson rows of the previous solve
-    drop out by the j <= niter rule."""
+    per-solve state, and the Anderson rows of the previous solve drop out by
+    the j <= niter rule (newest-first rows, or the fused carry's rows of age
+    j, whatever phase slot holds them)."""
     _, _, pdata, pmeta = problem
     x0, ws = _inputs(11, pmeta.nx, pmeta.tree.d)
     tol = 1e-4
     res_a = mpc.simulate_async(pdata, pmeta, x0, ws, tol=tol, n_steps=T,
-                               device="cpu")
+                               device="cpu", fused_step=fused_step)
 
     x = torch.tensor(x0)
     z = zero_primal(pmeta, (B,), torch.float64, "cpu")
     v = zero_dual(pmeta, (B,), torch.float64, "cpu")
     iters, us = [], []
     for t in range(T):
-        res = sp.run_supermann(pdata, pmeta, x, z, v, tol=tol, max_iter=1000)
+        res = sp.run_supermann(pdata, pmeta, x, z, v, tol=tol, max_iter=1000,
+                               fused_step=fused_step)
         assert bool(res.converged.all())
         iters.append(res.iterations)
         z, v = res.z, res.v

@@ -32,13 +32,14 @@ def test_solver_matches_jax_solver(algorithm):
 @pytest.mark.parametrize("algorithm", ["spock", "cp"])
 def test_composed_path_solves_as_the_fused_path(algorithm):
     """fused_sweep=False takes the composed sweep; on the CPU both routes run
-    the same plain operators, so the solves agree exactly."""
+    the same plain operators, so the solves agree exactly (both on sp_body:
+    the fused step is held in tests/test_torch_spstep.py)."""
     _, jdata, jmeta = jax_problem("car")
     pdata, pmeta = port_data(jdata, jmeta)
     x0 = np.array([0.1, 0.1])
-    fused = Solver(pdata, pmeta, algorithm=algorithm, device="cpu").solve(
-        x0, tol=1e-6)
+    fused = Solver(pdata, pmeta, algorithm=algorithm, device="cpu",
+                   fused_step=False).solve(x0, tol=1e-6)
     composed = Solver(pdata, pmeta, algorithm=algorithm, device="cpu",
-                      fused_sweep=False).solve(x0, tol=1e-6)
+                      fused_sweep=False, fused_step=False).solve(x0, tol=1e-6)
     assert int(fused.iterations) == int(composed.iterations)
     np.testing.assert_array_equal(fused.z.u.numpy(), composed.z.u.numpy())

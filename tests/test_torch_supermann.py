@@ -87,6 +87,23 @@ def test_solve3_matches_jax():
         got.numpy(), np.linalg.solve(A, b[..., None])[..., 0], atol=1e-10)
 
 
+def test_solve3_survives_a_small_float32_gram():
+    """The regularised Gram of a lane's first iteration near convergence:
+    one valid row of squared norm 1e-7, the others masked to the 1e-10
+    regularisation.  The adjugate's float32 determinant (~1e-42) is below
+    the normal range, so an unscaled solve overflows 1 / det and returns inf
+    or NaN weights; the scaled solve matches the float64 one."""
+    g00 = 1e-7
+    eps = 1e-10 * (g00 / 3) + 1e-30
+    A = np.diag([g00 + eps, eps, eps])[None]
+    b = np.array([[g00, 0.0, 0.0]])
+    ref = np.linalg.solve(A, b[..., None])[..., 0]
+    got = anderson._solve3(torch.tensor(A, dtype=torch.float32),
+                           torch.tensor(b, dtype=torch.float32))
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-12)
+
+
 def test_direction_struct_matches_jax(problem):
     """Newest-first histories with a mix of lane ages (stale rows masked)."""
     _, jmeta, _, _ = problem
