@@ -39,7 +39,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
    controls of 4d and 4e at the same states against the same solve;
 6. where the time goes: ``torch.profiler`` over 10 warm farm iterations of
    the main path (device time per iteration, kernels per iteration, the
-   step kernel's share, the top kernels).
+   step kernel's share, the top kernels);
+7. the wider problem class, in two configurations built here from the
+   headline spec with ``dataclasses.replace``: ``server_heat_poly_navar``
+   (per-node AV@R and two-sided polytope rows) and
+   ``server_heat_poly_navar_pncost`` (the same with per-node costs):
+   a. kernels #2-#5 against their plain versions on ``_pncost`` (all three
+      widenings at once), random float32 inputs at B lanes, timed;
+   b. the ``_navar`` farm on the fused step, as 4a (sp_step_fused alone);
+   c. the step kernel on a real ``_navar`` carry, as in phase 3;
+   d. the ``_pncost`` farm, on the sweep kernels #3 and #4 (the step
+      kernel's class has uniform costs), and a CP and a Broyden ``Solver``
+      warm-started from it (#2, #5);
+   e. the solutions: the root controls of both farms and of the two solves
+      against the port's float64 CPU solves, the root polytope rows, and
+      that the polytope binds (the float64 objective with it exceeds the one
+      without it).
+
+The float64 CPU solves of phases 5 and 7e run in REF_WORKERS worker
+processes, each started as soon as its farm has given the check states, so
+they overlap the card's phases; the farms of 7d and 7b therefore run first,
+right after phase 3, the ``_pncost`` farm ahead, since its solve (1022
+per-node matrices) is the longest and takes REF_THREADS_PNCOST threads.  The
+workers are stopped when the script ends, whatever happens.
 
 The last lines are the card, one JSON object with a row per kernel, and the
 result line ``{"ok": true, "device": {...}}``.  Numbers also go to
@@ -50,10 +72,12 @@ from __future__ import annotations
 
 import json
 import math
+import multiprocessing
 import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -111,6 +135,26 @@ STEP_ROWS = {  # row -> the TPU kernel whose function it holds
     "sp_step_fused_tau1":
         "spock_tpu/ops/pallas_spstep_lt.py:1093::sp_step_fused",
 }
+# the wider class: per-node AV@R (seed 5), the polytope rows
+#   non-leaf  lo <= [1'/nx ; e0 - e1] x + [0.5 1'/nx ; 0.5 e0] u <= hi
+#   leaf      loN <= 1'/nx x <= hiN
+# (every non-leaf row holds u, so the root stays feasible whatever the plant
+# does), and per-node costs by the spd() recipe (seed 31).  The closed loop
+# regulates the plants toward the origin, where a band symmetric about 0
+# never binds: loN = 0.005 keeps the mean leaf temperature just above it,
+# which doubles the objective at the check states and keeps the f32 farm's
+# controls within CONTROLS_TOL (a band further from 0 moves them further)
+POLY_LO, POLY_HI = (-0.2, -0.4), (0.2, 0.4)
+POLY_LO_N, POLY_HI_N = (0.005,), (0.15,)
+NAVAR, PNCOST = "poly_navar", "poly_navar_pncost"
+ROOT_ROWS_TOL = 1e-3  # the f32 farm's root polytope rows, as tol
+BIND_MARGIN = 1e-4  # objective with the polytope - without, at a check state
+# the float64 CPU reference solves run in worker processes beside the card's
+# phases: per-node AV@R slows their convergence (thousands of iterations).
+# Each takes one thread but the _pncost solve, whose per-node matrix products
+# are large enough to gain from more (of the host's 8 cores)
+REF_WORKERS, REF_CAP = 4, 10_000
+REF_THREADS_PNCOST = 4
 
 
 def check(cond, msg):
@@ -155,7 +199,8 @@ def bound(nbytes, ops):
 
 
 def nbytes_of(tensors):
-    return sum(a.numel() * a.element_size() for a in tensors)
+    return sum(a.numel() * a.element_size() for a in tensors
+               if a is not None)
 
 
 def abs_err(got, ref) -> float:
@@ -185,6 +230,37 @@ def hold(name, got, ref, scales=None, rtol=KERNEL_RTOL):
               f"{rtol} * (1 + {scale})")
         max_err = max(max_err, err)
     return max_err
+
+
+def wide_specs(spec):
+    """The ``_navar`` and ``_pncost`` specs from the headline spec."""
+    import dataclasses
+
+    from spock_tpu_torch import problem, risks
+
+    t, nx = spec.tree, NX
+    rng = np.random.default_rng(5)
+    ps = rng.dirichlet(np.ones(D), t.n_nonleaf)
+    alphas = rng.uniform(0.7, 0.99, t.n_nonleaf)
+    mean = np.ones((1, nx)) / nx
+    e0, e1 = np.eye(nx)[:1], np.eye(nx)[1:2]
+    poly = problem.Polytope(
+        Gx=np.concatenate([mean, e0 - e1]), Gu=np.concatenate([0.5 * mean,
+                                                             0.5 * e0]),
+        lo=np.array(POLY_LO), hi=np.array(POLY_HI), GxN=mean,
+        loN=np.array(POLY_LO_N), hiN=np.array(POLY_HI_N))
+    navar = dataclasses.replace(
+        spec, risk=risks.avar_nonuniform(ps, alphas), polytope=poly)
+    rng = np.random.default_rng(31)
+
+    def spd(n_nodes, base):
+        out = base * rng.uniform(0.5, 2.0, (n_nodes, 1, 1)) * np.eye(nx)
+        out = out + rng.uniform(-0.02, 0.02, (n_nodes, nx, nx))
+        return 0.5 * (out + out.transpose(0, 2, 1)) + 0.1 * np.eye(nx)
+
+    pncost = dataclasses.replace(navar, cost=problem.Cost(
+        Q=spd(t.n - 1, 0.1), R=spd(t.n - 1, 1.0), QN=spd(t.n_leaf, 0.1)))
+    return navar, pncost
 
 
 def kernel_row(name, source, replaces, max_err, kernel_ms, plain_ms,
@@ -241,7 +317,8 @@ def sweep_ops(meta, metric, direction, sweep=True):
     nx, nu, ny, d = meta.nx, meta.nu, meta.ny, t.d
     n_nl, n_nr, n_lf = t.n_nonleaf, t.n - 1, t.n_leaf
     pair = meta.nz + meta.nv
-    l_ops = 2 * (n_nl * ny + n_nr * (nx * nx + nu * nu) + n_lf * nx * nx)
+    l_ops = 2 * (n_nl * ny + n_nr * (nx * nx + nu * nu) + n_lf * nx * nx
+                 + n_nl * meta.nc_nl * (nx + nu) + n_lf * meta.nc_lf * nx)
     ops = 2 * l_ops + 2 * pair  # one L and one L' application: M
     if sweep:
         mker = ny + 2 * d
@@ -252,29 +329,31 @@ def sweep_ops(meta, metric, direction, sweep=True):
     return ops
 
 
-def sweep_kernel_checks(data, meta, card):
-    """Phase 3: the four whole-sweep kernels against their plain versions."""
+def row_name(name, tag):
+    return name if tag is None else f"{name}[{tag}]"
+
+
+def sweep_kernel_checks(data, meta, card, tag=None):
+    """Phase 3 (7a with ``tag``): the four whole-sweep kernels against their
+    plain versions; the rows are named ``name[tag]``."""
     from spock_tpu_torch.algorithms import common
     from spock_tpu_torch.ops import linop, sweep_kernels
     from spock_tpu_torch.problem import step_size
-    from spock_tpu_torch.zv import leaves, sub
+    from spock_tpu_torch.zv import leaves, sub, tmap
 
     rng = np.random.default_rng(1)
-    shapes = sweep_kernels.pair_shapes(meta, B)
 
     def pair():
-        return sweep_kernels._pair([
-            torch.tensor(rng.standard_normal(s), dtype=data.dtype,
-                         device=data.device) for s in shapes])
+        return sweep_kernels.new_pair(meta, B, lambda s: torch.tensor(
+            rng.standard_normal(s), dtype=data.dtype, device=data.device))
 
     (z, v), (dz, dv) = pair(), pair()
     x0 = torch.tensor(rng.uniform(-0.6, 0.6, (B, meta.nx)), dtype=data.dtype,
                       device=data.device)
     tau = torch.tensor(rng.random(B), dtype=data.dtype, device=data.device)
     g = s = step_size(data)
-    w = (sweep_kernels._pair([a + tau.reshape((B,) + (1,) * (a.ndim - 1)) * b
-                              for a, b in zip(leaves((z, v)),
-                                              leaves((dz, dv)))]))
+    w = tmap(lambda a, b: a + tau.reshape((B,) + (1,) * (a.ndim - 1)) * b,
+             (z, v), (dz, dv))
     calls = {
         "cp_sweep_fused": (
             lambda: sweep_kernels.cp_sweep_fused(data, meta, z, v, g, s, x0),
@@ -304,27 +383,30 @@ def sweep_kernel_checks(data, meta, card):
         ref = plain()
         scales = {}
         if name in ("cp_sweep_metric_fused", "candidate_sweep_fused"):
-            # the dot products: their rounding scales with sum |a_i b_i|
+            # the dot products: their rounding scales with sum |a_i b_i|;
+            # they follow the two pairs (z-bar, v-bar) and M r
+            dot = 2 * len(leaves(ref[:2]))
             base = (z, v) if name == "cp_sweep_metric_fused" else w
             r = sub(base, (ref[0], ref[1]))
-            scales[34] = float(sum(
+            scales[dot] = float(sum(
                 (a.abs() * b.abs()).flatten(1).sum(1)
                 for a, b in zip(leaves(r), leaves(ref[2:4]))).max())
             if name == "candidate_sweep_fused":
                 md = linop.metric_apply(data, meta, dz, dv, g, s)
-                scales[37] = float(sum(
+                scales[dot + 3] = float(sum(
                     (a.abs() * b.abs()).flatten(1).sum(1)
                     for a, b in zip(leaves(r), leaves(md))).max())
-        max_err = hold(name, got, ref, scales)
-        used = consts[:4] if name == "metric_apply_fused" else consts
+        max_err = hold(row_name(name, tag), got, ref, scales)
+        used = (consts[:sweep_kernels.N_LMATS] if name == "metric_apply_fused"
+                else consts)
         nbytes = nbytes_of(leaves(tuple(inputs)) + leaves(got) + used)
         ops = B * sweep_ops(meta, name != "cp_sweep_fused",
                             name == "candidate_sweep_fused",
                             sweep=name != "metric_apply_fused")
         source, replaces = SWEEP_KERNELS[name]
-        rows.append(kernel_row(name, source, replaces, max_err,
-                               time_ms(kernel), time_ms(plain), nbytes, ops,
-                               card))
+        rows.append(kernel_row(row_name(name, tag), source, replaces,
+                               max_err, time_ms(kernel), time_ms(plain),
+                               nbytes, ops, card))
     return rows
 
 
@@ -361,14 +443,14 @@ def step_bytes_ops(meta, args, out, consts):
     return nbytes, B * per_lane
 
 
-def step_kernel_checks(data, meta, spec, res2, card, opts):
+def step_kernel_checks(data, meta, spec, res2, card, opts, tag=None):
     """Phase 3, step rows: sp_step_fused against sp_step_ref on a real carry
     at B lanes.  The tau = 1 launch with the carry's cache flags (the
     function of the lane-tiled TPU kernel, #7) and a retrial launch with no
     cache and tau = beta^k by lane (#6) are held in float64 and timed in
     float32, where the K1/K2 decisions of kernel and plain version are
     compared lane by lane.  Also times the tau = 1 launch with every lane
-    cached and with none."""
+    cached and with none.  Rows and messages are named ``name[tag]``."""
     from spock_tpu_torch import build
     from spock_tpu_torch.algorithms import supermann as sp
     from spock_tpu_torch.ops import spstep, sweep_kernels
@@ -391,7 +473,8 @@ def step_kernel_checks(data, meta, spec, res2, card, opts):
     g64 = step_size(data64)
     consts = sweep_kernels._consts(data, meta)
     rows, extra = [], {}
-    for name, (cache, tau) in cases.items():
+    for base, (cache, tau) in cases.items():
+        name = row_name(base, tag)
         args = sp.step_inputs(c, opts, phase, act, cache, c.r_safe, tau)
         args64 = tmap(lambda a: a.double(), args)
         got64 = spstep.sp_step_fused(data64, meta64, *args64, g64, g64,
@@ -444,7 +527,7 @@ def step_kernel_checks(data, meta, spec, res2, card, opts):
               f"{int((cache > 0).sum())} cached, {int(act.sum())} active "
               f"lanes [{card}]", flush=True)
         nbytes, ops = step_bytes_ops(meta, args, got, consts)
-        rows.append(kernel_row(name, STEP_SOURCE, STEP_ROWS[name], max_err,
+        rows.append(kernel_row(name, STEP_SOURCE, STEP_ROWS[base], max_err,
                                time_ms(kernel),
                                time_ms(plain, spin=4 * SPIN_CYCLES), nbytes,
                                ops, card))
@@ -460,7 +543,8 @@ def step_kernel_checks(data, meta, spec, res2, card, opts):
                                                    **knobs))
     skip["carry_flags"] = rows[0]["ms"]
     extra["cache_skip_ms"] = skip
-    print(f"[step] tau = 1 launch: {skip['carry_flags']:.4f} ms with the "
+    print(f"[step] {row_name('tau = 1', tag)} launch: "
+          f"{skip['carry_flags']:.4f} ms with the "
           f"carry's cache flags, {skip['all_cached']:.4f} ms with every lane "
           f"cached, {skip['none_cached']:.4f} ms with none [{card}]",
           flush=True)
@@ -544,29 +628,95 @@ def farm(data, meta, x0, ws, card, device, label, warm_steps, **path):
     return res1, res2, nums, farm_iters
 
 
-def solution_check(data, meta, spec, xs, ws, card, device):
-    """Phase 5: f32 root controls of a cold 1-step farm on the main path
-    against the port's float64 CPU solve (plain versions, composed
-    iteration).  Returns the error and the reference controls."""
-    from spock_tpu_torch import build, mpc
+def reference_solve(spec, xs, threads):
+    """The port's float64 CPU solve (plain versions, composed iteration, tol
+    1e-5) from the states xs [lanes, nx] (numpy), run in a worker process on
+    ``threads`` threads: (root controls, objectives, seconds, iterations,
+    converged)."""
+    from spock_tpu_torch import build
     from spock_tpu_torch.solver import Solver
 
+    torch.set_num_threads(threads)
+    t0 = time.perf_counter()
+    data64, meta64 = build(spec, dtype=torch.float64, device="cpu")
+    ref = Solver(data64, meta64, algorithm="spock", max_iter=REF_CAP,
+                 device="cpu", fused_step=False).solve(torch.tensor(xs),
+                                                       tol=1e-5)
+    return (ref.z.u[:, :, 0].numpy(), ref.z.s[:, 0].numpy(),
+            time.perf_counter() - t0, ref.iterations.tolist(),
+            bool(ref.converged.all()))
+
+
+def submit_reference(pool, spec, xs, threads=1):
+    """Start :func:`reference_solve` from the first CHECK_LANES states."""
+    return pool.apply_async(reference_solve, (
+        spec, xs[:CHECK_LANES].double().cpu().numpy(), threads))
+
+
+def reference(job, label):
+    """The result of a submitted reference solve, which must converge."""
+    u, obj, seconds, iters, ok = job.get()
+    check(ok, f"{label}: float64 CPU reference did not converge in {REF_CAP} "
+          f"iterations: {iters}")
+    return u, obj, seconds, iters
+
+
+def solution_check(data, meta, spec, xs, ws, card, device, ref, tag=None,
+                   ref_free=None):
+    """Phase 5 (7e with ``tag``): f32 root controls of a cold 1-step farm on
+    the configuration's default path against the port's float64 CPU solve
+    ``ref`` (submitted from the same states).  With a polytope, also the
+    root rows of the f32 controls, and with ``ref_free`` (the solve without
+    the polytope) whether the polytope binds: the float64 objective with it
+    exceeds the one without it by BIND_MARGIN at one of the check states.
+    Returns the numbers and the reference controls."""
+    from spock_tpu_torch import mpc
+
+    label = row_name("solution", tag)
     res = mpc.simulate_async(data, meta, xs, ws, TOL, n_steps=1,
                              max_total_iters=COLD_CAP, device=device)
-    check(bool((res.steps_done == 1).all()), "cold 1-step farm incomplete")
+    check(bool((res.steps_done == 1).all()), f"{label}: cold 1-step farm "
+          "incomplete")
     u_f32 = res.us[0, :CHECK_LANES].double().cpu().numpy()
-    data64, meta64 = build(spec, dtype=torch.float64, device="cpu")
-    ref = Solver(data64, meta64, algorithm="spock", max_iter=5000,
-                 device="cpu", fused_step=False).solve(
-        xs[:CHECK_LANES].double().cpu(), tol=1e-5)
-    check(bool(ref.converged.all()), "float64 CPU reference did not converge")
-    u_ref = ref.z.u[:, :, 0].numpy()
+    u_ref, obj, ref_s, ref_iters = reference(ref, label)
     err = float(np.abs(u_f32 - u_ref).max())
-    print(f"[solution] controls_max_err={err:.3e} over {CHECK_LANES} lanes "
-          f"(f32 card farm vs f64 CPU solve, limit {CONTROLS_TOL}) [{card}]",
-          flush=True)
-    check(err <= CONTROLS_TOL, f"controls_max_err {err} > {CONTROLS_TOL}")
-    return err, u_ref
+    print(f"[{label}] controls_max_err={err:.3e} over {CHECK_LANES} lanes "
+          f"(f32 card farm vs f64 CPU solve: {ref_iters} iterations in "
+          f"{ref_s:.1f} s, limit {CONTROLS_TOL}) [{card}]", flush=True)
+    out = dict(controls_max_err=err, reference_s=ref_s,
+               reference_iterations=ref_iters)
+    poly = spec.polytope
+    if poly is not None:
+        x = xs[:CHECK_LANES].double().cpu().numpy()
+        rows = x @ poly.Gx.T + u_f32 @ poly.Gu.T
+        viol = float(np.maximum(np.maximum(rows - poly.hi, poly.lo - rows),
+                                0.0).max())
+        out.update(root_rows=rows.tolist(), root_rows_violation=viol)
+        print(f"[{label}] root polytope rows {np.round(rows, 5).tolist()} "
+              f"(bounds {poly.lo.tolist()} .. {poly.hi.tolist()}), "
+              f"violation {viol:.3e} (limit {ROOT_ROWS_TOL}) [{card}]",
+              flush=True)
+    bind = ref_free is not None
+    if bind:
+        _, obj_free, free_s, _ = reference(ref_free, label)
+        gap = (obj - obj_free).tolist()
+        out.update(objective=obj.tolist(),
+                   objective_without_polytope=obj_free.tolist(),
+                   polytope_gap=gap)
+        print(f"[{label}] f64 objective {obj.tolist()} with the polytope, "
+              f"{obj_free.tolist()} without (solve {free_s:.1f} s): gap "
+              f"{gap} (binds if > {BIND_MARGIN}) [{card}]", flush=True)
+    check(err <= CONTROLS_TOL, f"{label}: controls_max_err {err} > "
+          f"{CONTROLS_TOL}")
+    if poly is not None:
+        check(out["root_rows_violation"] <= ROOT_ROWS_TOL,
+              f"{label}: root polytope rows violated by "
+              f"{out['root_rows_violation']}")
+    if bind:
+        check(max(out["polytope_gap"]) > BIND_MARGIN,
+              f"{label}: the polytope does not bind at the check states: "
+              f"gap {out['polytope_gap']}")
+    return out, u_ref
 
 
 def solver_run(data, meta, res2, card, label, kernel, **solver_kw):
@@ -601,6 +751,121 @@ def solver_run(data, meta, res2, card, label, kernel, **solver_kw):
           f"{label}: {kernel} launched {counts[kernel]} times in "
           f"{int(iters.max())} iterations")
     return dict(iterations=iters.tolist(), wall_s=wall_s, launches=counts), u
+
+
+def solver_controls(runs, u_ref, card):
+    """The root controls of warm-started Solver runs against the float64
+    solve's, within SOLVE_CONTROLS_TOL."""
+    for label, u, nums_ in runs:
+        nums_["controls_err"] = float(np.abs(u - u_ref).max())
+        print(f"[solution] {label}: controls {nums_['controls_err']:.3e} "
+              f"from the f64 solve (limit {SOLVE_CONTROLS_TOL}) [{card}]",
+              flush=True)
+        check(nums_["controls_err"] <= SOLVE_CONTROLS_TOL,
+              f"{label}: controls {nums_['controls_err']} from the f64 solve")
+
+
+def wide_farms(spec, x0, ws, card, device, opts, pool):
+    """The farm of 7d and phase 7b: the ``_pncost`` farm on the sweep
+    kernels and the ``_navar`` farm on the fused step, each followed by the
+    submission of its float64 reference solves.  Returns their state."""
+    import dataclasses
+
+    from spock_tpu_torch import build
+    from spock_tpu_torch.algorithms import supermann as sp
+    from spock_tpu_torch.ops import spstep, sweep_kernels
+
+    w = types.SimpleNamespace()
+    w.spec_n, w.spec_p = wide_specs(spec)
+    w.data_n, w.meta_n = build(w.spec_n, dtype=torch.float32)
+    w.data_p, w.meta_p = build(w.spec_p, dtype=torch.float32)
+    check(sp.use_fused_step(w.data_n, w.meta_n, opts),
+          f"{NAVAR}: the fused step does not take the configuration")
+    check(sweep_kernels.supported(w.meta_p, w.data_p)
+          and not spstep.supported(w.meta_p, w.data_p),
+          f"{PNCOST}: outside the sweep kernels' class, or inside the step "
+          "kernel's")
+
+    # 7d. the _pncost farm on the sweep kernels #3 and #4
+    _, w.res2_p, w.pnums, p_iters = farm(
+        w.data_p, w.meta_p, x0, ws, card, device, f"{PNCOST} fused-sweep",
+        WARM_STEPS)
+    pcounts = w.pnums["launches"]
+    check(pcounts["cp_sweep_metric_fused"] >= 1
+          and pcounts["candidate_sweep_fused"] >= p_iters,
+          f"{PNCOST}: the farm's sweep launches {pcounts} in {p_iters} farm "
+          "iterations")
+    check(pcounts["sp_step_fused"] == 0 and pcounts["prox_h_conj"] == 0,
+          f"{PNCOST}: the farm launched the step or prox kernel")
+    w.ref_p = submit_reference(pool, w.spec_p, w.res2_p.xs,
+                               threads=REF_THREADS_PNCOST)
+
+    # 7b. the _navar farm on the fused step: sp_step_fused alone
+    _, w.res2_n, w.nnums, w.n_iters = farm(
+        w.data_n, w.meta_n, x0, ws, card, device, f"{NAVAR} fused-step",
+        WARM_STEPS)
+    counts = w.nnums["launches"]
+    check(counts["sp_step_fused"] >= w.n_iters,
+          f"{NAVAR}: sp_step_fused launched {counts['sp_step_fused']} times "
+          f"in {w.n_iters} farm iterations")
+    others = {k: c for k, c in counts.items() if k != "sp_step_fused"}
+    check(not any(others.values()),
+          f"the {NAVAR} farm launched other kernels: {others}")
+    w.ref_n = submit_reference(pool, w.spec_n, w.res2_n.xs)
+    w.ref_free = submit_reference(
+        pool, dataclasses.replace(w.spec_n, polytope=None), w.res2_n.xs)
+    return w
+
+
+def wide_checks(w, ws, card, device, opts):
+    """Phases 7a, 7c, the Solvers of 7d and 7e on the state of
+    :func:`wide_farms`.  Returns the numbers, with the kernel rows (their
+    launches from the path that ran them) under "rows"."""
+    from spock_tpu_torch import SuperMannOpts
+
+    # 7a. kernels #2-#5 on all three widenings at once
+    prow = {r["name"]: r for r in sweep_kernel_checks(
+        w.data_p, w.meta_p, card, tag=PNCOST)}
+    for name in ("cp_sweep_metric_fused", "candidate_sweep_fused"):
+        prow[row_name(name, PNCOST)]["launches"] = w.pnums["launches"][name]
+
+    # 7c. the step kernel on a real _navar carry
+    nrows, nextra = step_kernel_checks(w.data_n, w.meta_n, w.spec_n,
+                                       w.res2_n, card, opts, tag=NAVAR)
+    nrows[0]["launches"] = w.n_iters
+    nrows[1]["launches"] = w.nnums["launches"]["sp_step_fused"]
+
+    # 7d. the Solvers warm-started from the _pncost farm: #2 and #5
+    cp, u_cp = solver_run(w.data_p, w.meta_p, w.res2_p, card,
+                          f"cp solve [{PNCOST}]", "cp_sweep_fused",
+                          algorithm="cp", max_iter=CP_CAP)
+    prow[row_name("cp_sweep_fused", PNCOST)]["launches"] = (
+        cp["launches"]["cp_sweep_fused"])
+    broyden, u_broyden = solver_run(
+        w.data_p, w.meta_p, w.res2_p, card, f"broyden solve [{PNCOST}]",
+        "metric_apply_fused", max_iter=BROYDEN_CAP,
+        supermann=SuperMannOpts(direction="broyden"))
+    prow[row_name("metric_apply_fused", PNCOST)]["launches"] = (
+        broyden["launches"]["metric_apply_fused"])
+
+    # 7e. the solutions
+    nsol, _ = solution_check(w.data_n, w.meta_n, w.spec_n, w.res2_n.xs, ws,
+                             card, device, w.ref_n, tag=NAVAR,
+                             ref_free=w.ref_free)
+    psol, u_ref = solution_check(w.data_p, w.meta_p, w.spec_p, w.res2_p.xs,
+                                 ws, card, device, w.ref_p, tag=PNCOST)
+    solver_controls(((f"cp solve [{PNCOST}]", u_cp, cp),
+                     (f"broyden solve [{PNCOST}]", u_broyden, broyden)),
+                    u_ref, card)
+    print(f"[paths] ms per farm iteration: {NAVAR} fused step "
+          f"{w.nnums['ms_per_farm_iteration']:.2f}, {PNCOST} fused sweep "
+          f"{w.pnums['ms_per_farm_iteration']:.2f}; solves/s "
+          f"{w.nnums['solves_per_s']:.2f}, {w.pnums['solves_per_s']:.2f} "
+          f"[{card}]", flush=True)
+    return dict(rows=list(prow.values()) + nrows, navar_farm=w.nnums,
+                navar_step=nextra, navar_solution=nsol, pncost_farm=w.pnums,
+                pncost_solution=psol, pncost_cp_solve=cp,
+                pncost_broyden_solve=broyden)
 
 
 def profile_farm(data, meta, res2, ws, card, wall_ms_per_iter):
@@ -663,8 +928,6 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; nothing was run")
     import spock_tpu_torch
-    from spock_tpu_torch import SuperMannOpts, build
-    from spock_tpu_torch.models import server_heat
     from spock_tpu_torch.ops import _build
 
     # ---- 1. environment ----
@@ -686,6 +949,22 @@ def main():
         print(f"[build] {name}: nvcc {sec:.1f} s\n{log.strip()}", flush=True)
     print(f"[build] all kernels ready in {build_s:.1f} s", flush=True)
 
+    # the float64 CPU reference solves run in these workers, stopped on
+    # the way out whatever happens
+    with multiprocessing.get_context("spawn").Pool(REF_WORKERS) as pool:
+        result = smoke(card, device, build_s, pool)
+    print(card, flush=True)
+    print(json.dumps({"kernels": result["kernels"]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+def smoke(card, device, build_s, pool):
+    """Phases 3-7; returns the numbers written to build/chip_smoke.json."""
+    from spock_tpu_torch import SuperMannOpts, build
+    from spock_tpu_torch.models import server_heat
+
     spec = server_heat.make_spec(N=N, nx=NX, d=D)
     data, meta = build(spec, dtype=torch.float32)
     check(data.device.type == "cuda", "build() did not default to the card")
@@ -695,12 +974,18 @@ def main():
     kernels += sweep_kernel_checks(data, meta, card)
     rows = {k["name"]: k for k in kernels}
 
-    # ---- 4a. the main path: the farm on the fused step ----
     rng = np.random.default_rng(0)
     x0 = torch.tensor(rng.uniform(-0.6, 0.6, (B, meta.nx)),
                       dtype=torch.float32, device=device)
     ws = torch.tensor(rng.integers(0, D, size=(COLD_STEPS + WARM_STEPS, B)),
                       device=device)
+
+    # ---- 7d, 7b: the wider class's farms first, whose reference solves
+    # then run beside the phases below ----
+    opts = SuperMannOpts()
+    wide_state = wide_farms(spec, x0, ws, card, device, opts, pool)
+
+    # ---- 4a. the main path: the farm on the fused step ----
     res1, res2, nums, farm_iters = farm(data, meta, x0, ws, card, device,
                                         "fused-step", WARM_STEPS)
     counts = nums["launches"]
@@ -712,9 +997,9 @@ def main():
           f"the fused-step farm launched other kernels: {others}")
     nums["retrials_per_farm_iteration"] = (
         counts["sp_step_fused"] - farm_iters) / farm_iters
+    ref = submit_reference(pool, spec, res2.xs)
 
     # ---- 3, step rows: the step kernel on a real carry ----
-    opts = SuperMannOpts()
     step_rows, step_extra = step_kernel_checks(data, meta, spec, res2, card,
                                                opts)
     step_rows[0]["launches"] = farm_iters  # one tau = 1 launch per iteration
@@ -764,15 +1049,15 @@ def main():
         broyden["launches"]["metric_apply_fused"])
 
     # ---- 5. the solution ----
-    err, u_ref = solution_check(data, meta, spec, res2.xs, ws, card, device)
-    for label, u, nums_ in (("cp solve", u_cp, cp),
-                            ("broyden solve", u_broyden, broyden)):
-        nums_["controls_err"] = float(np.abs(u - u_ref).max())
-        print(f"[solution] {label}: controls {nums_['controls_err']:.3e} "
-              f"from the f64 solve (limit {SOLVE_CONTROLS_TOL}) [{card}]",
-              flush=True)
-        check(nums_["controls_err"] <= SOLVE_CONTROLS_TOL,
-              f"{label}: controls {nums_['controls_err']} from the f64 solve")
+    sol, u_ref = solution_check(data, meta, spec, res2.xs, ws, card, device,
+                                ref)
+    err = sol["controls_max_err"]
+    solver_controls((("cp solve", u_cp, cp),
+                     ("broyden solve", u_broyden, broyden)), u_ref, card)
+
+    # ---- 7. the wider class: kernel rows, Solvers and solutions ----
+    wide = wide_checks(wide_state, ws, card, device, opts)
+    kernels += wide.pop("rows")
     check(all(k["launches"] for k in kernels),
           "a kernel row has no launches on its path")
 
@@ -780,19 +1065,15 @@ def main():
     prof = profile_farm(data, meta, res2, ws, card,
                         nums["ms_per_farm_iteration"])
 
+    result = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
+                  build_s=build_s, kernels=kernels, step=step_extra,
+                  fused_step_farm=nums, fused_sweep_farm=snums,
+                  composed_farm=cnums, cp_solve=cp, broyden_solve=broyden,
+                  controls_max_err=err, profile=prof, wide=wide)
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
-        json.dump(dict(card=card, torch=torch.__version__,
-                       cuda=torch.version.cuda, build_s=build_s,
-                       kernels=kernels, step=step_extra, fused_step_farm=nums,
-                       fused_sweep_farm=snums, composed_farm=cnums,
-                       cp_solve=cp, broyden_solve=broyden,
-                       controls_max_err=err, profile=prof), f, indent=1)
-    print(card, flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        json.dump(result, f, indent=1)
+    return result
 
 
 if __name__ == "__main__":

@@ -16,7 +16,10 @@
 //           N - 1 stage transitions and the forward rollout from x0; the S2
 //           kernel projector per non-leaf node on (y; s_children; tau_children)
 //   ubar  = prox_h*(u + sigma L (2 wbar - w)): the polyhedral dual cone, the
-//           half-line, the two second-order cones and the boxes
+//           half-line, the two second-order cones, the boxes and the
+//           two-sided polytope rows
+// for the JAX kernels' whole problem class: costs and risk data uniform or
+// per node, with or without polytope rows (sweep_common.cuh).
 // With WITH_METRIC also r = (w - wbar, u - ubar), M r = (r_z - gamma L' r_v,
 // r_v - sigma L r_z), <r, M r> and the inf-norms of both halves of M r.  With
 // WITH_DIRECTION also <r, M d> and the inf-norms of both halves of M d, for
@@ -27,6 +30,8 @@
 // server_heat N=10 nx=nu=20 d=2, float32, 123,214 values a pair) that is
 // 126 MB for the plain sweep and 252 MB for the candidate sweep, 38-75 us at
 // 3.35 TB/s, against 1.4-2.6 GFLOP of arithmetic (21-39 us at 67 TFLOP/s).
+// Per-node cost matrices add 4.1 MB read by every lane (from L2), polytope
+// rows 1.5 kB a lane of each pair.
 //
 // Design (simple and right first): one thread block of 512 threads per lane,
 // running sweep_lane of sweep_body.cuh, which sp_step.cu shares; the stages
@@ -73,15 +78,23 @@ cp_sweep_kernel(const __grid_constant__ SweepParams<T> P) {
   P.scal[5][lane] = red.ndv;
 }
 
-// Pointer order of the host array ``ptrs`` (see sweep_kernels.py):
-//   [0, 17) z, v   [17, 34) dz, dv   [34, 51) zbar, vbar   [51, 68) M r
-//   [68, 74) the six [B] scalar outputs   74 x0   75 tau
-//   76 sqrtQ  77 sqrtR  78 sqrtQN  79 b  80 ker_proj  81 K  82 Rtinv  83 ABK
-//   84 PB  85 B  86 x_min  87 x_max  88 u_min  89 u_max
-//   90 gq  91 gw  92 gdv  93 ginner
-// Unused pointers (the direction without WITH_DIRECTION, ...) may be null.
+// Pointer order of the host array ``ptrs`` (see sweep_kernels.py), 19 a
+// pair in the order of sweep_common.cuh's Block:
+//   [0, 19) z, v   [19, 38) dz, dv   [38, 57) zbar, vbar   [57, 76) M r
+//   [76, 82) the six [B] scalar outputs   82 x0   83 tau
+//   [84, 109) the constants and scratch, in make_consts's order
+// Unused pointers (the direction without WITH_DIRECTION, absent polytope
+// blocks and constants, ...) may be null.
+constexpr int kPtrDir = kPairBlocks;
+constexpr int kPtrOut = 2 * kPairBlocks;
+constexpr int kPtrMr = 3 * kPairBlocks;
+constexpr int kPtrScal = 4 * kPairBlocks;
+constexpr int kPtrX0 = kPtrScal + 6;
+constexpr int kPtrTau = kPtrX0 + 1;
+constexpr int kPtrConsts = kPtrTau + 1;
 
-// dims: nx, nu, ny, N, d, nseg, then nseg (kind, lo, hi) triples.
+// dims: the kDims entries of sweep_common.cuh, nseg, then nseg (kind, lo,
+// hi) triples.
 template <typename T>
 int launch(const void* ptrs, const int* dims, double gamma, double sigma,
            int metric, int direction, int B, void* stream) {
@@ -90,18 +103,18 @@ int launch(const void* ptrs, const int* dims, double gamma, double sigma,
   }
   SweepParams<T> P;
   void* const* p = static_cast<void* const*>(ptrs);
-  if (!make_consts(P.k, p + 76, dims, gamma, sigma)) {
+  if (!make_consts(P.k, p + kPtrConsts, dims, gamma, sigma)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   for (int b = 0; b < kPairBlocks; ++b) {
     P.in.p[b] = static_cast<T*>(p[b]);
-    P.dir.p[b] = static_cast<T*>(p[17 + b]);
-    P.out.p[b] = static_cast<T*>(p[34 + b]);
-    P.mr.p[b] = static_cast<T*>(p[51 + b]);
+    P.dir.p[b] = static_cast<T*>(p[kPtrDir + b]);
+    P.out.p[b] = static_cast<T*>(p[kPtrOut + b]);
+    P.mr.p[b] = static_cast<T*>(p[kPtrMr + b]);
   }
-  for (int k = 0; k < 6; ++k) P.scal[k] = static_cast<T*>(p[68 + k]);
-  P.x0 = static_cast<const T*>(p[74]);
-  P.tau = static_cast<const T*>(p[75]);
+  for (int k = 0; k < 6; ++k) P.scal[k] = static_cast<T*>(p[kPtrScal + k]);
+  P.x0 = static_cast<const T*>(p[kPtrX0]);
+  P.tau = static_cast<const T*>(p[kPtrTau]);
   if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!metric) {
@@ -117,7 +130,7 @@ int launch(const void* ptrs, const int* dims, double gamma, double sigma,
 }  // namespace
 }  // namespace spock
 
-// C entry points, bound with ctypes.  ptrs: host array of the 94 device
+// C entry points, bound with ctypes.  ptrs: host array of the 109 device
 // pointers in the order above; dims: host int array.  One thread block per
 // lane.  Returns cudaGetLastError().
 extern "C" int cp_sweep_f32(const void* ptrs, const int* dims, double gamma,

@@ -2,7 +2,9 @@
 // one launch, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel spock_tpu/ops/pallas_sweep.py ::
-// metric_apply_fused (kernel body _make_metric_kernel).  Its plain PyTorch
+// metric_apply_fused (kernel body _make_metric_kernel), for its whole
+// problem class: costs and risk data uniform or per node, with or without
+// polytope rows.  Its plain PyTorch
 // version is spock_tpu_torch/ops/linop.py :: metric_apply; the wrapper, the
 // launch count and the checks live in spock_tpu_torch/ops/sweep_kernels.py.
 // SuperMann's Broyden direction applies it to the secant step s once per
@@ -57,22 +59,23 @@ metric_apply_kernel(const __grid_constant__ MetricParams<T> P) {
 }
 
 // Pointer order of the host array ``ptrs`` (see sweep_kernels.py):
-//   [0, 17) z, v   [17, 34) M z, M v   34 sqrtQ  35 sqrtR  36 sqrtQN  37 b
-// dims: nx, nu, ny, N, d.
+//   [0, 19) z, v   [19, 38) M z, M v
+//   [38, 45) sqrtQ, sqrtR, sqrtQN, b, Gx, Gu, GxN (make_lmats's order)
+// Absent polytope blocks and rows are null.
+// dims: the kDims entries of sweep_common.cuh.
 template <typename T>
 int launch(const void* ptrs, const int* dims, double gamma, double sigma,
            int B, void* stream) {
   MetricParams<T> P;
-  if (B < 0 || !make_geo(P.g, dims[0], dims[1], dims[2], dims[3], dims[4])) {
+  if (B < 0 || !make_geo(P.g, dims)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   void* const* p = static_cast<void* const*>(ptrs);
   for (int b = 0; b < kPairBlocks; ++b) {
     P.in.p[b] = static_cast<T*>(p[b]);
-    P.out.p[b] = static_cast<T*>(p[17 + b]);
+    P.out.p[b] = static_cast<T*>(p[kPairBlocks + b]);
   }
-  P.lm = LMats<T>{static_cast<const T*>(p[34]), static_cast<const T*>(p[35]),
-                  static_cast<const T*>(p[36]), static_cast<const T*>(p[37])};
+  make_lmats(P.lm, p + 2 * kPairBlocks, P.g, dims);
   P.gamma = static_cast<T>(gamma);
   P.sigma = static_cast<T>(sigma);
   if (B == 0) return 0;

@@ -7,6 +7,9 @@
 // Their plain PyTorch version is sp_step_ref in spock_tpu_torch/ops/spstep.py,
 // which also holds the wrapper, the launch count and the checks.
 //
+// It takes the JAX step kernels' problem class: uniform costs, risk data
+// uniform or per node, with or without polytope rows.
+//
 // What one launch computes for every lane, from its scalar pack (active,
 // valid1, valid2, cache, r_safe, q_pow, rnorm_c, nMrz_c, nMrv_c, tau):
 //   1. (zbar, vbar): the cache pair if the lane's cache flag is set, else a
@@ -35,7 +38,7 @@
 // Design (simple and right first): one thread block of 512 threads per lane,
 // as in cp_sweep.cu, so the per-lane cache skip is a branch of the block and
 // the Gram, the 3x3 solve and the K1/K2 choice need no second launch.  The
-// passes stream each of the 17 blocks of the lane's pairs with neighbouring
+// passes stream each of the 19 blocks of the lane's pairs with neighbouring
 // threads on neighbouring addresses; the Anderson rows are read in place
 // (the caller binds them by iteration phase, so no history is ever copied);
 // M r~ and M d are reduced element by element without being stored.  The
@@ -73,6 +76,10 @@ struct StepParams {
   T* oscal;       // [B, kScOut]
   T c1, sigma_k2, lam, lam_sp;
 };
+
+// 16 pairs of 19 pointers and the sweep's constants: within the 4 KB of
+// kernel parameters that every CUDA 12 toolkit takes.
+static_assert(sizeof(StepParams<double>) <= 4096, "kernel parameters > 4 KB");
 
 template <typename T>
 __device__ __forceinline__ T nonneg(T x) {
@@ -261,15 +268,18 @@ sp_step_kernel(const __grid_constant__ StepParams<T> P) {
   }
 }
 
-// Pointer order of the host array ``ptrs`` (see ops/spstep.py), 17 pointers
-// a pair in the order of sweep_common.cuh's Block:
-//   [0, 136)    the 8 input pairs: z, cache, r_prev, s_prev, MR age 1,
+// Pointer order of the host array ``ptrs`` (see ops/spstep.py), 19 pointers
+// a pair in the order of sweep_common.cuh's Block (null for an absent
+// polytope block):
+//   [0, 152)    the 8 input pairs: z, cache, r_prev, s_prev, MR age 1,
 //               MR age 2, MP age 1, MP age 2
-//   [136, 238)  the 6 output pairs: z_new, w, r, s, y, p
-//   [238, 272)  the 2 scratch pairs: fresh sweep, direction
-//   272 x0  273 scalar pack [B, 10]  274 output scalars [B, 16]
-//   [275, 293)  the sweep's constants and scratch, in make_consts's order
-// dims: nx, nu, ny, N, d, nseg, then nseg (kind, lo, hi) triples.
+//   [152, 266)  the 6 output pairs: z_new, w, r, s, y, p
+//   [266, 304)  the 2 scratch pairs: fresh sweep, direction
+//   304 x0  305 scalar pack [B, 10]  306 output scalars [B, 16]
+//   [307, 332)  the sweep's constants and scratch, in make_consts's order
+// dims: the kDims entries of sweep_common.cuh, nseg, then nseg (kind, lo,
+// hi) triples.  The wrapper passes uniform costs only (the JAX step
+// kernel's class); the kernel itself reads per-node costs as the sweeps do.
 // coefs: gamma, sigma, c1, sigma_k2, lam, lam_sp.
 template <typename T>
 int launch(const void* ptrs, const int* dims, const double* coefs, int B,
@@ -304,7 +314,7 @@ int launch(const void* ptrs, const int* dims, const double* coefs, int B,
 }  // namespace
 }  // namespace spock
 
-// C entry points, bound with ctypes.  ptrs: host array of the 293 device
+// C entry points, bound with ctypes.  ptrs: host array of the 332 device
 // pointers in the order above; dims: host int array; coefs: host double
 // array.  One thread block per lane.  Returns cudaGetLastError().
 extern "C" int sp_step_f32(const void* ptrs, const int* dims,

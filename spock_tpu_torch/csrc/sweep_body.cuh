@@ -8,9 +8,11 @@
 //   w1    = w - gamma L' u
 //   wbar  = prox_f(w1): s_root - gamma; the S1 Riccati backward sweep over the
 //           N - 1 stage transitions and the forward rollout from x0; the S2
-//           kernel projector per non-leaf node on (y; s_children; tau_children)
+//           kernel projector of each non-leaf node (its own when the risk is
+//           per node) on (y; s_children; tau_children)
 //   ubar  = prox_h*(u + sigma L (2 wbar - w)): the polyhedral dual cone, the
-//           half-line, the two second-order cones and the boxes
+//           half-line, the two second-order cones, the boxes and the
+//           two-sided polytope rows
 // With WITH_METRIC also r = (w - wbar, u - ubar), M r = (r_z - gamma L' r_v,
 // r_v - sigma L r_z) (stored only when asked), <r, M r> and the inf-norms of
 // both halves of M r.  With WITH_DIRECTION also <r, M d> and the inf-norms
@@ -56,7 +58,8 @@ template <typename T>
 struct SweepConsts {
   Geo g;
   LMats<T> lm;
-  const T* ker;   // [mker, mker]
+  const T* ker;   // [1 | n_nl, mker, mker]
+  int sker;       // its node stride (0 when uniform)
   const T* K;     // [N-1, nu, nx]
   const T* Rti;   // [N-1, nu, nu]
   const T* ABK;   // [N-1, d, nx, nx]
@@ -66,6 +69,10 @@ struct SweepConsts {
   const T* xmax;
   const T* umin;
   const T* umax;
+  const T* plo;   // [nc] polytope bounds of the non-leaf rows (null: none)
+  const T* phi;
+  const T* pNlo;  // [ncL] of the leaf rows
+  const T* pNhi;
   T* gq;      // [B, nx, n] costates
   T* gw;      // [B, nu, mmax] u - sum_k B_k' q_k of one stage
   T* gdv;     // [B, nu, n_nl] feedforward terms
@@ -82,39 +89,43 @@ struct SweepRed {
 };
 
 // Fills the constants from the host pointer array p (in the order sqrtQ,
-// sqrtR, sqrtQN, b, ker_proj, K, Rtinv, ABK, PB, B, x_min, x_max, u_min,
-// u_max, gq, gw, gdv, ginner) and dims (nx, nu, ny, N, d, nseg, then nseg
+// sqrtR, sqrtQN, b, Gx, Gu, GxN, ker_proj, K, Rtinv, ABK, PB, B, x_min,
+// x_max, u_min, u_max, p_lo, p_hi, pN_lo, pN_hi, gq, gw, gdv, ginner) and
+// dims (the kDims leading entries of sweep_common.cuh, then nseg and nseg
 // (kind, lo, hi) triples); returns false on sizes the kernels do not take.
 template <typename T>
 bool make_consts(SweepConsts<T>& S, void* const* p, const int* dims,
                  double gamma, double sigma) {
-  const int nseg = dims[5];
+  const int nseg = dims[kDims];
   if (nseg < 0 || nseg > kMaxSegments) return false;
-  if (!make_geo(S.g, dims[0], dims[1], dims[2], dims[3], dims[4]) ||
-      S.g.ny + 2 * S.g.d > kMaxKer) {
-    return false;
-  }
-  S.lm = LMats<T>{static_cast<const T*>(p[0]), static_cast<const T*>(p[1]),
-                  static_cast<const T*>(p[2]), static_cast<const T*>(p[3])};
-  S.ker = static_cast<const T*>(p[4]);
-  S.K = static_cast<const T*>(p[5]);
-  S.Rti = static_cast<const T*>(p[6]);
-  S.ABK = static_cast<const T*>(p[7]);
-  S.PB = static_cast<const T*>(p[8]);
-  S.Bm = static_cast<const T*>(p[9]);
-  S.xmin = static_cast<const T*>(p[10]);
-  S.xmax = static_cast<const T*>(p[11]);
-  S.umin = static_cast<const T*>(p[12]);
-  S.umax = static_cast<const T*>(p[13]);
+  if (!make_geo(S.g, dims) || S.g.ny + 2 * S.g.d > kMaxKer) return false;
+  make_lmats(S.lm, p, S.g, dims);
+  p += kLMatPtrs;
+  const int mker = S.g.ny + 2 * S.g.d;
+  S.ker = static_cast<const T*>(p[0]);
+  S.sker = dims[DIM_PN_RISK] ? mker * mker : 0;
+  S.K = static_cast<const T*>(p[1]);
+  S.Rti = static_cast<const T*>(p[2]);
+  S.ABK = static_cast<const T*>(p[3]);
+  S.PB = static_cast<const T*>(p[4]);
+  S.Bm = static_cast<const T*>(p[5]);
+  S.xmin = static_cast<const T*>(p[6]);
+  S.xmax = static_cast<const T*>(p[7]);
+  S.umin = static_cast<const T*>(p[8]);
+  S.umax = static_cast<const T*>(p[9]);
+  S.plo = static_cast<const T*>(p[10]);
+  S.phi = static_cast<const T*>(p[11]);
+  S.pNlo = static_cast<const T*>(p[12]);
+  S.pNhi = static_cast<const T*>(p[13]);
   S.gq = static_cast<T*>(p[14]);
   S.gw = static_cast<T*>(p[15]);
   S.gdv = static_cast<T*>(p[16]);
   S.ginner = static_cast<T*>(p[17]);
   S.segs.n = nseg;
   for (int s = 0; s < nseg; ++s) {
-    S.segs.kind[s] = dims[6 + 3 * s];
-    S.segs.lo[s] = dims[7 + 3 * s];
-    S.segs.hi[s] = dims[8 + 3 * s];
+    S.segs.kind[s] = dims[kDims + 1 + 3 * s];
+    S.segs.lo[s] = dims[kDims + 2 + 3 * s];
+    S.segs.hi[s] = dims[kDims + 3 + 3 * s];
   }
   S.gamma = static_cast<T>(gamma);
   S.sigma = static_cast<T>(sigma);
@@ -214,6 +225,7 @@ __device__ SweepRed<T> sweep_lane(const SweepConsts<T>& P, int64_t lane,
   const int mker = g.ny + 2 * g.d;
   for (int i = tid; i < n_nl; i += kThreads) {
     const int t = stage_of(g, i);
+    const T* ker = P.ker + i * P.sker;
     T vec[kMaxKer];
     for (int k = 0; k < g.ny; ++k) vec[k] = o(PY, k * n_nl + i);
     for (int k = 0; k < g.d; ++k) {
@@ -224,7 +236,7 @@ __device__ SweepRed<T> sweep_lane(const SweepConsts<T>& P, int64_t lane,
     T res[kMaxKer];
     for (int a = 0; a < mker; ++a) {
       T acc = T(0);
-      for (int b = 0; b < mker; ++b) acc += P.ker[a * mker + b] * vec[b];
+      for (int b = 0; b < mker; ++b) acc += ker[a * mker + b] * vec[b];
       res[a] = acc;
     }
     for (int k = 0; k < g.ny; ++k) o(PY, k * n_nl + i) = res[k];
@@ -368,6 +380,10 @@ __device__ SweepRed<T> sweep_lane(const SweepConsts<T>& P, int64_t lane,
         w = sigma * (w - clip(w, P.xmin[r], P.xmax[r]));
       } else if constexpr (BLK == DCU) {
         w = sigma * (w - clip(w, P.umin[r], P.umax[r]));
+      } else if constexpr (BLK == DPNL) {
+        w = sigma * (w - clip(w, P.plo[r], P.phi[r]));
+      } else if constexpr (BLK == DPLF) {
+        w = sigma * (w - clip(w, P.pNlo[r], P.pNhi[r]));
       }
       o(BLK, idx) = w;  // SOC blocks: the argument, projected below
     });

@@ -8,8 +8,10 @@ holds it, the residual and the Anderson window-3 direction, the candidate
 sweep at (z, v) + tau d, and the K1 / K2 / fallback choice with the new
 iterate.
 
-Pairs are the port's ``(Primal, Dual)`` with the 17 contiguous [B, rows,
-cols] blocks of ``sweep_kernels.pair_shapes``.  The JAX kernel's W/Y/S lane
+Pairs are the port's ``(Primal, Dual)`` with the 19 contiguous [B, rows,
+cols] blocks of ``sweep_kernels.pair_shapes`` (the two polytope blocks None
+when the problem has none).  The problem class is the JAX step kernels':
+that of the sweep kernels with uniform costs (``supported``).  The JAX kernel's W/Y/S lane
 packing exists only for the TPU's (8, 128) tiling and has no counterpart
 here: a pair is passed as it is, and the root input is ``z.u[:, :, 0]``.
 
@@ -47,8 +49,13 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
 
 
 def supported(meta: ProblemMeta, data: ProblemData) -> bool:
-    """The problem class of the sweep kernels (``sweep_kernels.supported``)."""
-    return sweep_kernels.supported(meta, data)
+    """The class of the JAX package's ``pallas_spstep.supported`` without its
+    VMEM terms: the sweep kernels' class (per-node risk and polytope rows
+    included) with uniform costs; per-node sqrtQ, sqrtR or sqrtQN take the
+    sweep kernels instead."""
+    return (sweep_kernels.supported(meta, data)
+            and all(a.shape[0] == 1 for a in (data.sqrtQ, data.sqrtR,
+                                              data.sqrtQN)))
 
 
 def sp_step_ref(data: ProblemData, meta: ProblemMeta, z, v, cache, r_prev,
@@ -142,17 +149,20 @@ def sp_step_ref(data: ProblemData, meta: ProblemMeta, z, v, cache, r_prev,
 
 
 def _empty_pair(sizes, shapes, dtype, device) -> list:
-    """The 17 blocks of a pair as views of one allocation."""
+    """The 19 blocks of a pair as views of one allocation (None for an
+    absent block)."""
     flat = torch.empty(sum(sizes), dtype=dtype, device=device)
-    return [a.view(s) for a, s in zip(flat.split(sizes), shapes)]
+    return [None if s is None else a.view(s)
+            for a, s in zip(flat.split(sizes), shapes)]
 
 
 def _block_ptrs(flat, sizes) -> list:
     """Device pointers of consecutive blocks of ``sizes`` elements in the
-    one-dimensional tensor ``flat``."""
+    one-dimensional tensor ``flat`` (None for an empty block)."""
     ptrs, off = [], 0
     for n in sizes:
-        ptrs.append(flat.data_ptr() + off * flat.element_size())
+        ptrs.append(flat.data_ptr() + off * flat.element_size() if n
+                    else None)
         off += n
     return ptrs
 
@@ -174,6 +184,8 @@ def sp_step_fused(data: ProblemData, meta: ProblemMeta, z, v, cache, r_prev,
         return sp_step_ref(data, meta, z, v, cache, r_prev, s_prev, mr_a1,
                            mr_a2, mp_a1, mp_a2, x0, scal, gamma, sigma, c1,
                            sigma_k2, lam, lam_sp)
+    if not supported(meta, data):
+        raise ValueError(f"{name} kernel: unsupported problem class")
     device, dtype, B, shapes, ins, consts = sweep_kernels._inputs(
         name, data, meta, z, v)
     for q in pairs[1:]:
@@ -182,7 +194,7 @@ def sp_step_fused(data: ProblemData, meta: ProblemMeta, z, v, cache, r_prev,
         ins += blocks
     sweep_kernels._check(name, [x0, scal], [(B, meta.nx), (B, N_SC)], device,
                          dtype)
-    sizes = [math.prod(s) for s in shapes]
+    sizes = [0 if s is None else math.prod(s) for s in shapes]
     outs = [_empty_pair(sizes, shapes, dtype, device) for _ in range(6)]
     # scratch: the fresh-sweep and direction pairs, then the sweep's
     # costate and feedforward arrays
@@ -194,13 +206,14 @@ def sp_step_fused(data: ProblemData, meta: ProblemMeta, z, v, cache, r_prev,
                        device=device)
     scratch = _block_ptrs(flat, sizes * 2 + costates)
     oscal = torch.empty((B, N_OC), dtype=dtype, device=device)
-    ptr = ([a.data_ptr() for a in ins]
-           + [a.data_ptr() for pair in outs for a in pair]
+    ptr = ([sweep_kernels._ptr(a) for a in ins]
+           + [sweep_kernels._ptr(a) for pair in outs for a in pair]
            + scratch[:2 * len(sizes)]
            + [x0.data_ptr(), scal.data_ptr(), oscal.data_ptr()]
-           + [a.data_ptr() for a in consts] + scratch[2 * len(sizes):])
+           + [sweep_kernels._ptr(a) for a in consts]
+           + scratch[2 * len(sizes):])
     ptrs = (ctypes.c_void_p * len(ptr))(*ptr)
-    dims = sweep_kernels._dims(meta, True)
+    dims = sweep_kernels._dims(data, meta, True)
     coefs = (ctypes.c_double * 6)(float(gamma), float(sigma), float(c1),
                                   float(sigma_k2), float(lam), float(lam_sp))
     suffix = {torch.float32: "f32", torch.float64: "f64"}[dtype]

@@ -10,10 +10,16 @@ The counterpart of the JAX package's ``spock_tpu/ops/pallas_sweep.py``:
 * ``metric_apply_fused`` applies the metric M in one launch of
   ``csrc/metric_apply.cu``.
 
-They take the JAX functions' arguments and return the same tuples.  Both
-kernels are bound by memory: they read each lane's iterate and write their
-outputs once (126 MB per plain sweep at the headline size, 38 us at
+They take the JAX functions' arguments and return the same tuples, for the
+JAX kernels' whole problem class (``supported``): costs and risk data uniform
+or per node, a polyhedral dual cone, with or without two-sided polytope rows.
+Both kernels are bound by memory: they read each lane's iterate and write
+their outputs once (126 MB per plain sweep at the headline size, 38 us at
 3.35 TB/s).
+
+A pair is 19 blocks in the kernels' order (``BLOCKS``: the Primal fields,
+``DUAL_BLOCKS``, then the polytope rows ``pnl`` and ``plf``); an absent
+polytope block is None here and a null pointer in the kernel.
 
 A wrapper takes its plain version (``common.cp_sweep_ref``,
 ``cp_sweep_metric_ref``, ``candidate_sweep_ref`` and ``linop.metric_apply``)
@@ -37,8 +43,10 @@ LAUNCHES = {"cp_sweep_fused": 0, "cp_sweep_metric_fused": 0,
             "candidate_sweep_fused": 0, "metric_apply_fused": 0}
 
 MAX_STAGES = 24  # kMaxStages of csrc/sweep_common.cuh
-MAX_KER = 32  # kMaxKer of csrc/cp_sweep.cu: ny + 2 d
+MAX_KER = 32  # kMaxKer of csrc/sweep_body.cuh: ny + 2 d
 PRIMAL_BLOCKS = ("x", "u", "s", "tau", "y")
+DUAL_ALL = DUAL_BLOCKS + ("pnl", "plf")
+BLOCKS = PRIMAL_BLOCKS + DUAL_ALL  # the 19 blocks of csrc/sweep_common.cuh
 
 _SIGNATURES = {
     "cp_sweep": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_double,
@@ -51,36 +59,51 @@ _CONSTS: dict = {}
 
 
 def supported(meta: ProblemMeta, data: ProblemData) -> bool:
-    """The kernels cover uniform costs and risk, a polyhedral dual cone of at
-    most 8 segments, and no polytope rows."""
+    """The class of the JAX package's ``pallas_sweep.supported`` without its
+    VMEM terms: a polyhedral dual cone (here of at most 8 segments), risk
+    data (b, ker_proj) uniform or per non-leaf node, sqrtQ and sqrtR uniform
+    or per non-root node, sqrtQN uniform or per leaf, with or without
+    polytope rows; and a tree of at most 24 stages with ny + 2 d <= 32."""
     t = meta.tree
-    return (cuda_kernels.supported(meta)
-            and all(a.shape[0] == 1 for a in (data.sqrtQ, data.sqrtR,
-                                              data.sqrtQN, data.b,
-                                              data.ker_proj))
+    return (all(k in cuda_kernels.KIND for k, _ in meta.dual_cone)
+            and len(meta.dual_cone) <= cuda_kernels.MAX_SEGMENTS
+            and data.b.shape[0] in (1, t.n_nonleaf)
+            and data.ker_proj.shape[0] == data.b.shape[0]
+            and data.sqrtQ.shape[0] in (1, t.n - 1)
+            and data.sqrtR.shape[0] in (1, t.n - 1)
+            and data.sqrtQN.shape[0] in (1, t.n_leaf)
             and t.N <= MAX_STAGES and meta.ny + 2 * t.d <= MAX_KER)
 
 
 def pair_shapes(meta: ProblemMeta, B: int) -> list:
-    """The [B, ...] shapes of the 17 blocks of a (Primal, Dual) pair, in the
-    kernels' order (Primal fields, then DUAL_BLOCKS)."""
+    """The [B, ...] shapes of the 19 blocks of a (Primal, Dual) pair in the
+    kernels' order (``BLOCKS``), None for an absent polytope block."""
     t = meta.tree
     primal = [(B, meta.nx, t.n), (B, meta.nu, t.n_nonleaf), (B, t.n),
               (B, t.n - 1), (B, meta.ny, t.n_nonleaf)]
     dual = cuda_kernels.block_shapes(meta, B)
-    return primal + [dual[k] for k in DUAL_BLOCKS]
+    poly = [(B, meta.nc_nl, t.n_nonleaf) if meta.nc_nl else None,
+            (B, meta.nc_lf, t.n_leaf) if meta.nc_lf else None]
+    return primal + [dual[k] for k in DUAL_BLOCKS] + poly
 
 
 def _blocks(z: Primal, v: Dual) -> list:
-    if v.pnl is not None or v.plf is not None:
-        raise ValueError("sweep kernels: polytope rows are not supported")
     return ([getattr(z, k) for k in PRIMAL_BLOCKS]
-            + [getattr(v, k) for k in DUAL_BLOCKS])
+            + [getattr(v, k) for k in DUAL_ALL])
 
 
 def _pair(outs: list):
+    """(Primal, Dual) from the 19 blocks in the kernels' order (None for an
+    absent polytope block)."""
     return (Primal(**dict(zip(PRIMAL_BLOCKS, outs[:5]))),
-            Dual(**dict(zip(DUAL_BLOCKS, outs[5:]))))
+            Dual(**dict(zip(DUAL_ALL, outs[5:]))))
+
+
+def new_pair(meta: ProblemMeta, B: int, make):
+    """A (Primal, Dual) pair of [B, ...] blocks, ``make(shape)`` for each
+    block the problem has."""
+    return _pair([None if s is None else make(s)
+                  for s in pair_shapes(meta, B)])
 
 
 def _on_cpu(*tensors) -> bool:
@@ -88,7 +111,14 @@ def _on_cpu(*tensors) -> bool:
 
 
 def _check(name, tensors, shapes, device, dtype) -> None:
+    """Each tensor on ``device`` in ``dtype``, contiguous, of its shape; a
+    None shape (an absent block) takes None only."""
     for i, (a, shape) in enumerate(zip(tensors, shapes)):
+        if (a is None) != (shape is None):
+            raise ValueError(f"{name} kernel: argument {i} is "
+                             f"{'missing' if a is None else 'not expected'}")
+        if a is None:
+            continue
         if a.device != device or a.dtype != dtype:
             raise ValueError(f"{name} kernel: argument {i} is {a.dtype} on "
                              f"{a.device}, expected {dtype} on {device}")
@@ -107,30 +137,41 @@ def _device(name, a) -> torch.device:
     return a.device
 
 
+N_LMATS = 7  # the first constants, the matrices of L (make_lmats's order)
+
+
 def _consts(data: ProblemData, meta: ProblemMeta) -> list:
-    """The kernels' constants, contiguous: sqrtQ, sqrtR, sqrtQN, b, ker_proj,
-    the stage stacks of K, Rtinv, ABK and PB, B, and the box bounds."""
+    """The kernels' constants, contiguous, in csrc/sweep_body.cuh's
+    make_consts order: sqrtQ, sqrtR, sqrtQN and b (whole, with their node
+    dimension), the polytope rows Gx, Gu and GxN, ker_proj, the stage stacks
+    of K, Rtinv, ABK and PB, B, the box bounds and the polytope bounds
+    (None where the problem has no polytope)."""
     hit = _CONSTS.get(id(data))
     if hit is not None and hit[0] is data:
         return hit[1]
     ric = data.ric
-    consts = [data.sqrtQ[0], data.sqrtR[0], data.sqrtQN[0], data.b[0],
-              data.ker_proj[0],
+    consts = [data.sqrtQ, data.sqrtR, data.sqrtQN, data.b,
+              data.Gx, data.Gu, data.GxN, data.ker_proj,
               torch.stack([a[0] for a in ric.K]),
               torch.stack([a[0] for a in ric.Rtinv]),
               torch.stack([a[0] for a in ric.ABK]),
               torch.stack([a[0] for a in ric.PB]),
-              data.B, data.x_min, data.x_max, data.u_min, data.u_max]
-    consts = [a.contiguous() for a in consts]
+              data.B, data.x_min, data.x_max, data.u_min, data.u_max,
+              data.p_lo, data.p_hi, data.pN_lo, data.pN_hi]
+    consts = [None if a is None else a.contiguous() for a in consts]
     if len(_CONSTS) >= 8:
         _CONSTS.clear()
     _CONSTS[id(data)] = (data, consts)
     return consts
 
 
-def _dims(meta: ProblemMeta, segments: bool):
+def _dims(data: ProblemData, meta: ProblemMeta, segments: bool):
+    """The int array ``dims`` (csrc/sweep_common.cuh's Dim entries, then
+    with ``segments`` the dual cone's row segments)."""
     t = meta.tree
-    dims = [meta.nx, meta.nu, meta.ny, t.N, t.d]
+    dims = [meta.nx, meta.nu, meta.ny, t.N, t.d, meta.nc_nl, meta.nc_lf]
+    dims += [int(a.shape[0] != 1) for a in (data.sqrtQ, data.sqrtR,
+                                            data.sqrtQN, data.b)]
     if segments:
         segs = cuda_kernels.cone_segments(meta.dual_cone)
         dims.append(len(segs))
@@ -154,9 +195,13 @@ def _call(fn, args, device) -> int:
         return fn(*args, stream)
 
 
+def _ptr(a):
+    return None if a is None else a.data_ptr()
+
+
 def _inputs(name, data, meta, z, v):
     """Check the problem class and the (z, v) pair; returns (device, dtype,
-    B, the 17 block shapes, the 17 blocks, the constants)."""
+    B, the 19 block shapes, the 19 blocks, the constants)."""
     if not supported(meta, data):
         raise ValueError(f"{name} kernel: unsupported problem class")
     device = _device(name, z.s)
@@ -166,7 +211,8 @@ def _inputs(name, data, meta, z, v):
     ins = _blocks(z, v)
     _check(name, ins, shapes, device, dtype)
     consts = _consts(data, meta)
-    _check(name, consts, [tuple(a.shape) for a in consts], device, dtype)
+    _check(name, consts, [None if a is None else tuple(a.shape)
+                          for a in consts], device, dtype)
     return device, dtype, B, shapes, ins, consts
 
 
@@ -182,12 +228,17 @@ def _launch(name, lib, dtype, device, ptr, dims, *args) -> None:
     LAUNCHES[name] += 1
 
 
+def _empty(shapes, dtype, device) -> list:
+    return [None if s is None else torch.empty(s, dtype=dtype, device=device)
+            for s in shapes]
+
+
 def _sweep(name, data, meta, z, v, gamma, sigma, x0, metric, direction=None):
-    """Launch csrc/cp_sweep.cu; returns the output tensors (17 of zbar/vbar,
-    then with ``metric`` 17 of M r and the [6, B] scalar rows)."""
+    """Launch csrc/cp_sweep.cu; returns the output tensors (19 of zbar/vbar,
+    then with ``metric`` 19 of M r and the [6, B] scalar rows)."""
     device, dtype, B, shapes, ins, consts = _inputs(name, data, meta, z, v)
     _check(name, [x0], [(B, meta.nx)], device, dtype)
-    dirs, tau = [None] * 17, None
+    dirs, tau = [None] * len(BLOCKS), None
     if direction is not None:
         dz, dv, tau = direction
         dirs = _blocks(dz, dv)
@@ -197,17 +248,15 @@ def _sweep(name, data, meta, z, v, gamma, sigma, x0, metric, direction=None):
         _check(name, [tau], [(B,)], device, dtype)
     t = meta.tree
     mmax = t.stage_size(t.N - 2)
-    outs = [torch.empty(s, dtype=dtype, device=device) for s in shapes]
-    mrs = ([torch.empty(s, dtype=dtype, device=device) for s in shapes]
-           if metric else [None] * 17)
+    outs = _empty(shapes, dtype, device)
+    mrs = _empty(shapes, dtype, device) if metric else [None] * len(BLOCKS)
     scal = torch.empty((6, B), dtype=dtype, device=device)
     scratch = [torch.empty((B, n), dtype=dtype, device=device) for n in (
         meta.nx * t.n, meta.nu * mmax, meta.nu * t.n_nonleaf,
         t.d * meta.nx * mmax)]
-    ptr = [a.data_ptr() if a is not None else None for a in
-           ins + dirs + outs + mrs + list(scal) + [x0, tau] + consts
-           + scratch]
-    _launch(name, "cp_sweep", dtype, device, ptr, _dims(meta, True),
+    ptr = [_ptr(a) for a in ins + dirs + outs + mrs + list(scal) + [x0, tau]
+           + consts + scratch]
+    _launch(name, "cp_sweep", dtype, device, ptr, _dims(data, meta, True),
             float(gamma), float(sigma), int(metric),
             int(direction is not None), B)
     return outs, mrs, scal
@@ -259,8 +308,9 @@ def metric_apply_fused(data: ProblemData, meta: ProblemMeta, z: Primal,
     if _on_cpu(z.s, v.sby):
         return metric_apply(data, meta, z, v, gamma, sigma)
     device, dtype, B, shapes, ins, consts = _inputs(name, data, meta, z, v)
-    outs = [torch.empty(s, dtype=dtype, device=device) for s in shapes]
-    ptr = [a.data_ptr() for a in ins + outs + consts[:4]]
-    _launch(name, "metric_apply", dtype, device, ptr, _dims(meta, False),
+    outs = _empty(shapes, dtype, device)
+    ptr = [_ptr(a) for a in ins + outs + consts[:N_LMATS]]
+    _launch(name, "metric_apply", dtype, device, ptr,
+            _dims(data, meta, False),
             float(gamma), float(sigma), B)
     return _pair(outs)

@@ -90,6 +90,23 @@ def avar(p: np.ndarray, alpha: float, n_nonleaf: int) -> RiskSpec:
     return _uniform(E, F, b, (("nonneg", 2 * d), ("zero", 1)), n_nonleaf)
 
 
+def avar_nonuniform(ps: np.ndarray, alphas: np.ndarray) -> RiskSpec:
+    """Per-node AV@R with node-dependent probabilities and levels: the
+    matrices of :func:`avar` stacked per node.  ps: [n_nonleaf, d], alphas:
+    [n_nonleaf]."""
+    ps = np.asarray(ps, dtype=np.float64)
+    alphas = np.asarray(alphas, dtype=np.float64)
+    n_nonleaf, d = ps.shape
+    eye = np.eye(d)
+    E = np.concatenate([alphas[:, None, None] * eye[None],
+                        -np.broadcast_to(eye, (n_nonleaf, d, d)),
+                        np.ones((n_nonleaf, 1, d))], axis=1)
+    F = np.zeros((n_nonleaf, 2 * d + 1, d))
+    b = np.concatenate([ps, np.zeros((n_nonleaf, d)),
+                        np.ones((n_nonleaf, 1))], axis=1)
+    return RiskSpec(E=E, F=F, b=b, cone=(("nonneg", 2 * d), ("zero", 1)))
+
+
 def total_variation(p: np.ndarray, r: float, n_nonleaf: int) -> RiskSpec:
     """Uniform total-variation risk:
 

@@ -7,6 +7,7 @@ JAX:  python -m pytest tests/test_torch_isolation.py -m cuda --noconftest
 -o addopts="" -p no:cacheprovider
 """
 
+import dataclasses
 import os
 import re
 import subprocess
@@ -18,7 +19,7 @@ import pytest
 import torch
 
 import spock_tpu_torch
-from spock_tpu_torch import build, mpc
+from spock_tpu_torch import build, mpc, problem, risks
 from spock_tpu_torch.models import server_heat
 from spock_tpu_torch.algorithms import common
 from spock_tpu_torch.ops import (
@@ -121,9 +122,8 @@ def test_kernel_wrapper_never_falls_back(cpu_problem):
 
 
 def _meta_pair(meta, B, dtype=torch.float32):
-    return sweep_kernels._pair([
-        torch.empty(s, dtype=dtype, device="meta")
-        for s in sweep_kernels.pair_shapes(meta, B)])
+    return sweep_kernels.new_pair(
+        meta, B, lambda s: torch.empty(s, dtype=dtype, device="meta"))
 
 
 SWEEP_CALLS = {
@@ -165,6 +165,51 @@ def test_step_wrapper_never_falls_back(cpu_problem):
     assert spstep.LAUNCHES == before
 
 
+def _per_node_costs(data, meta):
+    t = meta.tree
+
+    def per_node(a, k):
+        return a.expand((k,) + tuple(a.shape[1:])).contiguous()
+
+    return dataclasses.replace(data, sqrtQ=per_node(data.sqrtQ, t.n - 1),
+                               sqrtR=per_node(data.sqrtR, t.n - 1),
+                               sqrtQN=per_node(data.sqrtQN, t.n_leaf))
+
+
+def test_step_wrapper_raises_on_per_node_costs(cpu_problem):
+    """The step kernel's class has uniform costs only: with per-node costs
+    a call on tensors that are not on the CPU raises, never taking the
+    plain version."""
+    data, meta = cpu_problem
+    data = _per_node_costs(data, meta)
+    assert sweep_kernels.supported(meta, data)
+    assert not spstep.supported(meta, data)
+    pairs = [_meta_pair(meta, 2, torch.float64) for _ in range(8)]
+    x0 = torch.empty((2, meta.nx), dtype=torch.float64, device="meta")
+    scal = torch.empty((2, spstep.N_SC), dtype=torch.float64, device="meta")
+    before = dict(spstep.LAUNCHES)
+    with pytest.raises(ValueError, match="sp_step_fused kernel: unsupported"):
+        spstep.sp_step_fused(data, meta, *pairs[0], *pairs[1:], x0, scal, 0.2,
+                             0.3, c1=0.99, sigma_k2=0.1, lam=1.0, lam_sp=1.0)
+    assert spstep.LAUNCHES == before
+
+
+@pytest.mark.parametrize("name", list(SWEEP_CALLS))
+def test_sweep_wrappers_raise_on_an_unsupported_class(cpu_problem, name):
+    """A second-order risk cone is outside the sweep kernels' class: a call
+    on tensors that are not on the CPU raises."""
+    data, meta = cpu_problem
+    meta = dataclasses.replace(meta, cone=(("soc", meta.ny),))
+    z, v = _meta_pair(meta, 2, torch.float64)
+    x0 = torch.empty((2, meta.nx), dtype=torch.float64, device="meta")
+    tau = torch.empty((2,), dtype=torch.float64, device="meta")
+    before = dict(sweep_kernels.LAUNCHES)
+    with pytest.raises(ValueError, match=f"{name} kernel: unsupported"):
+        SWEEP_CALLS[name](getattr(sweep_kernels, name), data, meta, z, v, x0,
+                          tau)
+    assert sweep_kernels.LAUNCHES == before
+
+
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "_LIBS", {})
@@ -175,8 +220,6 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_kernel_support_follows_the_problem_class(cpu_problem):
-    import dataclasses
-
     from spock_tpu_torch.problem import ProblemMeta
     from spock_tpu_torch.tree import UniformTree
 
@@ -189,15 +232,21 @@ def test_kernel_support_follows_the_problem_class(cpu_problem):
         cone=(("nonneg", 4), ("zero", 1)), nc_nl=2, **base))
     assert cuda_kernels.cone_segments((("nonneg", 4), ("reals", 1))) == (
         ("nonneg", 0, 4), ("reals", 4, 5))
-    # the sweep kernels: uniform costs and risk on top of the same class
+    # the sweep kernels: polyhedral cones with polytope rows, per-node
+    # costs and per-node risk; the step kernel: the same with uniform costs
     data, meta = cpu_problem
     assert sweep_kernels.supported(meta, data)
+    assert spstep.supported(meta, data)
     assert not sweep_kernels.supported(
         dataclasses.replace(meta, cone=(("soc", 5),)), data)
-    assert not sweep_kernels.supported(dataclasses.replace(meta, nc_nl=2),
-                                       data)
+    assert not spstep.supported(
+        dataclasses.replace(meta, cone=(("soc", 5),)), data)
+    assert sweep_kernels.supported(dataclasses.replace(meta, nc_nl=2), data)
+    assert spstep.supported(dataclasses.replace(meta, nc_nl=2), data)
     per_node_q = data.sqrtQ.expand((meta.tree.n - 1,) + data.sqrtQ.shape[1:])
-    assert not sweep_kernels.supported(
+    assert sweep_kernels.supported(
+        meta, dataclasses.replace(data, sqrtQ=per_node_q))
+    assert not spstep.supported(
         meta, dataclasses.replace(data, sqrtQ=per_node_q))
 
 
@@ -257,13 +306,57 @@ def test_sweep_kernel_matches_plain_version_on_the_card(name, dtype):
     than PyTorch, over up to ~1e3 terms per lane here."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    data, meta = build(server_heat.make_spec(N=4, nx=5, d=2), dtype=dtype)
+    _sweep_check(server_heat.make_spec(N=4, nx=5, d=2), name, dtype)
+
+
+def _wide_spec(per_node_costs):
+    """server_heat N=4 nx=5 with per-node AV@R, two-sided polytope rows on
+    the non-leaf and leaf nodes, and with ``per_node_costs`` per-node Q, R
+    and QN: the widened kernels' class."""
+    spec = server_heat.make_spec(N=4, nx=5, d=2)
+    t, nx = spec.tree, 5
+    rng = np.random.default_rng(5)
+    risk = risks.avar_nonuniform(rng.dirichlet(np.ones(2), t.n_nonleaf),
+                                 rng.uniform(0.7, 0.99, t.n_nonleaf))
+    ones = np.ones((1, nx)) / nx
+    poly = problem.Polytope(
+        Gx=np.concatenate([ones, np.eye(nx)[:1] - np.eye(nx)[1:2]]),
+        Gu=np.concatenate([0.5 * ones, 0.5 * np.eye(nx)[:1]]),
+        lo=np.array([-0.2, -0.4]), hi=np.array([0.2, 0.4]),
+        GxN=ones, loN=np.array([-0.15]), hiN=np.array([0.15]))
+    spec = dataclasses.replace(spec, risk=risk, polytope=poly)
+    if per_node_costs:
+        def diag(k, scale):
+            return np.stack([np.diag(rng.uniform(0.5, 1.5, nx)) * scale
+                             for _ in range(k)])
+
+        spec = dataclasses.replace(spec, cost=problem.Cost(
+            Q=diag(t.n - 1, 0.1), R=diag(t.n - 1, 1.0),
+            QN=diag(t.n_leaf, 0.1)))
+    return spec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", list(FUSED))
+def test_widened_sweep_kernel_matches_plain_version_on_the_card(name, dtype):
+    """Each sweep kernel against its plain version on per-node risk,
+    per-node costs and polytope rows at once, with the tolerances of the
+    uniform test above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    spec = _wide_spec(per_node_costs=True)
+    _sweep_check(spec, name, dtype)
+
+
+def _sweep_check(spec, name, dtype):
+    data, meta = build(spec, dtype=dtype)
+    assert sweep_kernels.supported(meta, data)
     rng = np.random.default_rng(0)
 
     def pair():
-        return sweep_kernels._pair([
-            torch.tensor(rng.standard_normal(s), dtype=dtype, device="cuda")
-            for s in sweep_kernels.pair_shapes(meta, 3)])
+        return sweep_kernels.new_pair(meta, 3, lambda s: torch.tensor(
+            rng.standard_normal(s), dtype=dtype, device="cuda"))
 
     (z, v), (dz, dv) = pair(), pair()
     x0 = torch.tensor(rng.standard_normal((3, meta.nx)), dtype=dtype,
@@ -289,9 +382,8 @@ def _step_case(meta, dtype, B=4):
     rng = np.random.default_rng(1)
 
     def pair():
-        return sweep_kernels._pair([
-            torch.tensor(rng.standard_normal(s), dtype=dtype, device="cuda")
-            for s in sweep_kernels.pair_shapes(meta, B)])
+        return sweep_kernels.new_pair(meta, B, lambda s: torch.tensor(
+            rng.standard_normal(s), dtype=dtype, device="cuda"))
 
     pairs = [pair() for _ in range(8)]
     x0 = torch.tensor(rng.uniform(-0.5, 0.5, (B, meta.nx)), dtype=dtype,
@@ -315,7 +407,23 @@ def test_step_kernel_matches_plain_version_on_the_card(dtype):
     threshold may flip in float32."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    data, meta = build(server_heat.make_spec(N=4, nx=5, d=2), dtype=dtype)
+    _step_check(server_heat.make_spec(N=4, nx=5, d=2), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_widened_step_kernel_matches_plain_version_on_the_card(dtype):
+    """The step kernel against sp_step_ref on per-node risk and polytope
+    rows (its class has uniform costs), with the tolerances of the uniform
+    test above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _step_check(_wide_spec(per_node_costs=False), dtype)
+
+
+def _step_check(spec, dtype):
+    data, meta = build(spec, dtype=dtype)
+    assert spstep.supported(meta, data)
     pairs, x0, scal = _step_case(meta, dtype)
     args = (data, meta, *pairs[0], *pairs[1:], x0, scal, 0.21, 0.37)
     knobs = dict(c1=0.99, sigma_k2=0.1, lam=1.0, lam_sp=1.0)

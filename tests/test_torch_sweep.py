@@ -72,9 +72,9 @@ def test_fused_function_matches_jax(problem, name):
 
 
 def test_support_follows_the_problem_class(problem):
-    """Uniform costs and risk, polyhedral cone, no polytope rows: supported;
-    per-node costs, per-node risk, polytopes or a second-order risk cone:
-    not (the composed path takes those)."""
+    """The JAX sweep kernels' class: costs and risk uniform or per node,
+    with or without polytope rows, are supported; a second-order risk cone
+    is not (the composed path takes that)."""
     _, _, pdata, pmeta = problem
     t = pmeta.tree
     assert sweep_kernels.supported(pmeta, pdata)
@@ -94,8 +94,13 @@ def test_support_follows_the_problem_class(problem):
             ker_proj=per_node(pdata.ker_proj, t.n_nonleaf)),
     }
     for name, data in cases.items():
-        assert not sweep_kernels.supported(pmeta, data), name
-    assert not sweep_kernels.supported(
+        assert sweep_kernels.supported(pmeta, data), name
+    assert sweep_kernels.supported(
         dataclasses.replace(pmeta, nc_nl=2), pdata)
     assert not sweep_kernels.supported(
         dataclasses.replace(pmeta, cone=(("soc", pmeta.ny),)), pdata)
+    # node dimensions that are neither uniform nor per node
+    assert not sweep_kernels.supported(
+        pmeta, dataclasses.replace(pdata, sqrtQ=per_node(pdata.sqrtQ, 2)))
+    assert not sweep_kernels.supported(
+        pmeta, dataclasses.replace(pdata, b=per_node(pdata.b, t.n_nonleaf)))

@@ -9,16 +9,88 @@ import numpy as np
 import torch
 
 from spock_tpu import build as jbuild
+from spock_tpu import problem as jproblem
+from spock_tpu import risks as jrisks
 from spock_tpu import zv as jzv
 from spock_tpu.models import car as jcar
 from spock_tpu.models import server_heat as jsh
-from spock_tpu_torch import interop
+from spock_tpu_torch import interop, problem, risks
+from spock_tpu_torch.tree import UniformTree
+
+
+def _poly(spec):
+    """server_heat N=3 nx=3 with the two-sided polytope of
+    tests/test_polytope.py."""
+    return dataclasses.replace(spec, polytope=jproblem.Polytope(
+        Gx=np.array([[1.0, 1.0, 1.0], [1.0, -1.0, 0.0]]),
+        Gu=np.array([[0.0, 0.0, 0.0], [0.5, 0.0, 0.0]]),
+        lo=np.array([-1.2, -0.8]), hi=np.array([1.2, 0.8]),
+        GxN=np.ones((1, 3)), loN=np.array([-1.0]), hiN=np.array([1.0])))
+
+
+def _poly_n4(spec):
+    """server_heat N=4 nx=4 with the polytope of
+    tests/test_pallas_sweep.py's polytope test."""
+    Gx = np.array([[1.0, 0.5, 0.0, 0.0], [0.0, 0.0, 1.0, -0.3]])
+    return dataclasses.replace(spec, polytope=jproblem.Polytope(
+        Gx=Gx, Gu=np.array([[0.2, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.1]]),
+        lo=np.array([-1.5, -1.0]), hi=np.array([1.5, 1.0]), GxN=Gx[:1],
+        loN=np.array([-1.2]), hiN=np.array([1.2])))
+
+
+def _navar(spec):
+    """Per-node AV@R as in tests/test_risks.py's nonuniform test."""
+    rng = np.random.default_rng(3)
+    n_nl = spec.tree.n_nonleaf
+    ps = np.stack([jrisks.rand_probvec(rng, 2) for _ in range(n_nl)])
+    return dataclasses.replace(spec, risk=jrisks.avar_nonuniform(
+        ps, rng.uniform(0.4, 0.95, n_nl)))
+
+
+def _pncost(spec):
+    """Per-node costs by the spd() recipe of tests/test_pallas_sweep.py's
+    per-node cost test (seed 31)."""
+    t, nx = spec.tree, spec.dynamics.A.shape[-1]
+    rng = np.random.default_rng(31)
+
+    def spd(n_nodes, base):
+        out = base * rng.uniform(0.5, 2.0, (n_nodes, 1, 1)) * np.eye(nx)
+        out = out + rng.uniform(-0.02, 0.02, (n_nodes, nx, nx))
+        return 0.5 * (out + out.transpose(0, 2, 1)) + 0.1 * np.eye(nx)
+
+    return dataclasses.replace(spec, cost=jproblem.Cost(
+        Q=spd(t.n - 1, 0.1), R=spd(t.n - 1, 1.0), QN=spd(t.n_leaf, 0.1)))
+
 
 SMALL = {
     "car": lambda: jcar.make_spec(N=3, d=2),
     "server_heat": lambda: jsh.make_spec(N=4, nx=5, d=2),
     "server_heat_d3": lambda: jsh.make_spec(N=3, nx=3, d=3),
+    # the wider problem class: two-sided polytope rows, per-node risk,
+    # per-node costs, and all three at once
+    "poly": lambda: _poly(jsh.make_spec(N=3, nx=3, d=2)),
+    "poly_n4": lambda: _poly_n4(jsh.make_spec(N=4, nx=4, d=2)),
+    "navar": lambda: _navar(jsh.make_spec(N=3, nx=3, d=2)),
+    "poly_navar": lambda: _navar(_poly(jsh.make_spec(N=3, nx=3, d=2))),
+    "pncost": lambda: _pncost(jsh.make_spec(N=4, nx=4, d=2)),
+    "wide": lambda: _pncost(_navar(_poly_n4(jsh.make_spec(N=4, nx=4, d=2)))),
 }
+
+
+def port_spec(spec):
+    """The port's Spec with the arrays of a JAX package Spec."""
+    poly = spec.polytope
+    return problem.Spec(
+        tree=UniformTree(N=spec.tree.N, d=spec.tree.d),
+        cost=problem.Cost(Q=spec.cost.Q, R=spec.cost.R, QN=spec.cost.QN),
+        dynamics=problem.Dynamics(A=spec.dynamics.A, B=spec.dynamics.B),
+        risk=risks.RiskSpec(E=spec.risk.E, F=spec.risk.F, b=spec.risk.b,
+                            cone=spec.risk.cone),
+        constraints=problem.Box(*(getattr(spec.constraints, f) for f in (
+            "x_min", "x_max", "u_min", "u_max"))),
+        polytope=None if poly is None else problem.Polytope(
+            **{f.name: getattr(poly, f.name)
+               for f in dataclasses.fields(problem.Polytope)}))
 
 
 def jax_problem(name):
@@ -49,6 +121,8 @@ def dual_shapes(meta):
         cx=(meta.nx, t.n_nonleaf), cu=(meta.nu, t.n_nonleaf),
         qNx=(meta.nx, t.n_leaf), s12=(t.n_leaf,), s13=(t.n_leaf,),
         cxN=(meta.nx, t.n_leaf),
+        **({"pnl": (meta.nc_nl, t.n_nonleaf)} if meta.nc_nl else {}),
+        **({"plf": (meta.nc_lf, t.n_leaf)} if meta.nc_lf else {}),
     )
 
 
