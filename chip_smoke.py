@@ -9,22 +9,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
    CUDA versions, and the TF32 switches, which must be off;
 2. build: every kernel under ``spock_tpu_torch/csrc`` (prox_h_conj,
    cp_sweep, metric_apply, sp_step) with nvcc for sm_90a, one nvcc per
-   source, all started together;
+   source: the first three together, then sp_step (minutes of ptxas) in a
+   thread while phase 3 and the ``_pncost`` farm of 7d run, waited for
+   just before the step kernels' first use;
 3. each kernel against its plain PyTorch version at the shapes of the main
    path (B = 128 lanes of server_heat N=10 nx=nu=20 d=2, float32), and both
    timed with CUDA events: prox_h_conj, cp_sweep_fused,
    cp_sweep_metric_fused, candidate_sweep_fused and metric_apply_fused on
-   random inputs; after 4a, sp_step_fused (the kernel of both TPU step
-   kernels: at tau = 1 with the carry's cache flags, and as a backtracking
-   retrial) on a real carry, one fused iteration into a solve from the main
-   path's final state, held in float64 and timed in float32;
+   random inputs; after 4a, the step kernels of csrc/sp_step.cu (the
+   function of both TPU step kernels) on a real carry, one fused iteration
+   into a solve from the main path's final state, held in float64 and
+   timed in float32: sp_step_fused at tau = 1 with the carry's cache
+   flags, and sp_step_retrial (a backtracking retrial on the zbar and d
+   the tau = 1 launch kept) on the lanes that launch leaves looping, on
+   the first of them alone and on all B lanes; the ptxas report and the shared-memory plan of the step
+   kernels are printed after the build;
 4. the paths, each driven with every kernel launch count set to 0 just
    before it and read just after:
    a. the main path, ``mpc.simulate_async`` on the fused step: the
       warm-started async MPC farm of B = 128 server_heat chains at tol 1e-3
       (a cold phase of 2 steps, then a warm phase of 24 steps chained from
       its state), where every SuperMann iteration is one sp_step_fused
-      launch plus one per backtracking retrial;
+      launch plus one sp_step_retrial launch per backtracking retrial, over
+      the lanes still looping (their mean number is reported);
    b. the same farm on the fused sweep (``fused_step=False``), where every
       CP sweep is one launch of a sweep kernel;
    c. the same farm on the composed path (``fused_sweep=False``), whose
@@ -46,8 +53,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``server_heat_poly_navar_pncost`` (the same with per-node costs):
    a. kernels #2-#5 against their plain versions on ``_pncost`` (all three
       widenings at once), random float32 inputs at B lanes, timed;
-   b. the ``_navar`` farm on the fused step, as 4a (sp_step_fused alone);
-   c. the step kernel on a real ``_navar`` carry, as in phase 3;
+   b. the ``_navar`` farm on the fused step, as 4a (the step kernels
+      alone);
+   c. the step kernels on a real ``_navar`` carry, as in phase 3;
    d. the ``_pncost`` farm, on the sweep kernels #3 and #4 (the step
       kernel's class has uniform costs), and a CP and a Broyden ``Solver``
       warm-started from it (#2, #5);
@@ -70,6 +78,8 @@ result line ``{"ok": true, "device": {...}}``.  Numbers also go to
 
 from __future__ import annotations
 
+import concurrent.futures
+import functools
 import json
 import math
 import multiprocessing
@@ -130,6 +140,7 @@ SWEEP_KERNELS = {  # wrapper -> (source, the TPU kernel it replaces)
         "spock_tpu/ops/pallas_sweep.py:1174::metric_apply_fused"),
 }
 STEP_SOURCE = "spock_tpu_torch/csrc/sp_step.cu"
+OC_G0, OC_G2 = 10, 12  # the Anderson weights' output slots (spstep.OC_*)
 STEP_ROWS = {  # row -> the TPU kernel whose function it holds
     "sp_step_fused": "spock_tpu/ops/pallas_spstep.py:1340::sp_step_fused",
     "sp_step_fused_tau1":
@@ -189,6 +200,34 @@ def time_ms(fn, reps=TIMING_REPS, warmup=5, spin=SPIN_CYCLES):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def ptxas_summary(log):
+    """Registers, spill bytes (the entry's and those of the functions it
+    calls, summed) and static shared memory of each kernel entry in an
+    ``nvcc -Xptxas -v`` log: {entry: dict}."""
+    import re
+
+    out, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            out[entry] = dict(spill_stores=0, spill_loads=0)
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[entry]["spill_stores"] += int(m.group(1))
+            out[entry]["spill_loads"] += int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[entry]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[entry]["static_smem"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def bound(nbytes, ops):
@@ -425,11 +464,13 @@ def step_carry(data, meta, res2, opts):
 
 
 def step_bytes_ops(meta, args, out, consts):
-    """Bytes the step must move (each input read once, each output written
-    once; a lane reads the cache pair only when its cache flag is set) and
-    its floating-point operations (the fresh sweep only for lanes without a
-    cache, the candidate sweep, and ~40 operations per value of the pair for
-    the residual, the Gram sums, the direction and the commit)."""
+    """Bytes the tau = 1 step's function must move (each input read once,
+    each of its six output pairs and its scalars written once; a lane reads
+    the cache pair only when its cache flag is set; what the kernel keeps
+    for the retrials is not counted) and its floating-point operations (the
+    fresh sweep only for lanes without a cache, the candidate sweep, and ~40
+    operations per value of the pair for the residual, the Gram sums, the
+    direction and the commit)."""
     from spock_tpu_torch.ops import spstep
     from spock_tpu_torch.zv import leaves
 
@@ -437,20 +478,58 @@ def step_bytes_ops(meta, args, out, consts):
     cached = float((scal[:, spstep.SC_CACHE] > 0).double().mean())
     pair_bytes = nbytes_of(leaves(args[:2]))
     nbytes = (nbytes_of(leaves(args)) - (1.0 - cached) * pair_bytes
-              + nbytes_of(leaves(out)) + nbytes_of(consts))
+              + nbytes_of(leaves(out[:7])) + nbytes_of(consts))
     per_lane = ((1.0 - cached) * sweep_ops(meta, True, False)
                 + sweep_ops(meta, True, True) + 40 * (meta.nz + meta.nv))
     return nbytes, B * per_lane
 
 
-def step_kernel_checks(data, meta, spec, res2, card, opts, tag=None):
-    """Phase 3, step rows: sp_step_fused against sp_step_ref on a real carry
-    at B lanes.  The tau = 1 launch with the carry's cache flags (the
-    function of the lane-tiled TPU kernel, #7) and a retrial launch with no
-    cache and tau = beta^k by lane (#6) are held in float64 and timed in
-    float32, where the K1/K2 decisions of kernel and plain version are
-    compared lane by lane.  Also times the tau = 1 launch with every lane
-    cached and with none.  Rows and messages are named ``name[tag]``."""
+def retrial_bytes_ops(meta, k, pair_bytes, consts):
+    """Bytes and operations of a retrial of k lanes: z, d and zbar read and
+    z_new and s written at those lanes (the pair of one lane is
+    pair_bytes / B), the constants once; the candidate sweep and ~20
+    operations per value for the commit."""
+    nbytes = 5 * k * pair_bytes / B + nbytes_of(consts)
+    return nbytes, k * (sweep_ops(meta, True, True)
+                        + 20 * (meta.nz + meta.nv))
+
+
+def hold_step(name, got, ref, lanes=None):
+    """A step's six pairs (or the retrial's z_new and s) and its output
+    slots 0-12 in float64 against the plain version's, with identical K1 /
+    K2 / loop decisions; ``lanes`` picks the rows of the pairs to compare.
+    Returns the largest error and the errors by slot."""
+    from spock_tpu_torch.zv import tmap
+
+    gs, rs = got[-1], ref[-1]
+    check(bool((gs[:, :3] == rs[:, :3]).all()),
+          f"{name}: float64 K1/K2 decisions differ from the plain version")
+    pick = (lambda a: a) if lanes is None else (lambda a: a[lanes])
+    max_err = hold(name, tmap(pick, got[:-1]), tmap(pick, ref[:-1]),
+                   rtol=STEP_RTOL64)
+    slot_err = []
+    for j in range(OC_G2 + 1):
+        rtol = STEP_WEIGHTS_RTOL64 if j >= OC_G0 else STEP_RTOL64
+        slot_err.append(hold(f"{name} output slot {j}", gs[:, j], rs[:, j],
+                             rtol=rtol))
+    return max(max_err, *slot_err), slot_err
+
+
+def step_kernel_checks(data, meta, spec, res2, card, opts, tag=None,
+                       mean_lanes=None):
+    """Phase 3, step rows, on a real carry at B lanes:
+    - the tau = 1 launch with the carry's cache flags (the function of the
+      lane-tiled TPU kernel, #7) against sp_step_ref;
+    - a retrial (#6) of the lanes that launch leaves looping, at tau = beta
+      on the zbar and d it kept, against sp_retrial_ref, and in float64 also
+      against sp_step_ref with no cache at tau = beta on those lanes (from a
+      tau = 1 launch with no cache, so that its zbar is the fresh sweep);
+    - the retrial of the first of those lanes alone, and of all B lanes.
+    Each is held in float64 and timed in float32, where the K1/K2 decisions
+    of kernel and plain version are compared lane by lane.  Also times the
+    tau = 1 launch with every lane cached and with none.  ``mean_lanes``:
+    the farm's mean looping lanes per retrial, taken when the carry leaves
+    no lane looping.  Rows and messages are named ``name[tag]``."""
     from spock_tpu_torch import build
     from spock_tpu_torch.algorithms import supermann as sp
     from spock_tpu_torch.ops import spstep, sweep_kernels
@@ -462,10 +541,6 @@ def step_kernel_checks(data, meta, spec, res2, card, opts, tag=None):
     act = ~c.done
     ones = torch.ones_like(c.r_safe)
     no_cache = torch.zeros_like(c.cache_valid)
-    lanes = torch.arange(B, device=c.r_safe.device)
-    tau_bt = opts.beta ** (1 + lanes % 4).to(c.r_safe.dtype)
-    cases = {"sp_step_fused_tau1": (c.cache_valid, ones),
-             "sp_step_fused": (no_cache, tau_bt)}
     knobs = dict(c1=opts.c1, sigma_k2=opts.sigma_k2, lam=opts.lam,
                  lam_sp=opts.lam_sp)
     g = step_size(data)
@@ -473,74 +548,156 @@ def step_kernel_checks(data, meta, spec, res2, card, opts, tag=None):
     g64 = step_size(data64)
     consts = sweep_kernels._consts(data, meta)
     rows, extra = [], {}
-    for base, (cache, tau) in cases.items():
-        name = row_name(base, tag)
+
+    def inputs(cache, tau, dtype=torch.float32):
         args = sp.step_inputs(c, opts, phase, act, cache, c.r_safe, tau)
-        args64 = tmap(lambda a: a.double(), args)
-        got64 = spstep.sp_step_fused(data64, meta64, *args64, g64, g64,
-                                     **knobs)
-        torch.cuda.synchronize()
-        ref64 = spstep.sp_step_ref(data64, meta64, *args64, g64, g64, **knobs)
-        check(bool((got64[6][:, :3] == ref64[6][:, :3]).all()),
-              f"{name}: float64 K1/K2 decisions differ from the plain version")
-        max_err = hold(name, got64[:6], ref64[:6], rtol=STEP_RTOL64)
-        slot_err = []
-        for j in range(spstep.OC_G2 + 1):
-            rtol = (STEP_WEIGHTS_RTOL64 if j >= spstep.OC_G0
-                    else STEP_RTOL64)
-            slot_err.append(hold(f"{name} output slot {j}", got64[6][:, j],
-                                 ref64[6][:, j], rtol=rtol))
-        max_err = max(max_err, *slot_err)
+        return args if dtype == torch.float32 else tmap(
+            lambda a: a.double(), args)
 
-        def kernel(args=args):
-            return spstep.sp_step_fused(data, meta, *args, g, g, **knobs)
+    def f32_agreement(label, got, ref, lanes_=None):
+        """Decisions of kernel and plain lane by lane; values on the lanes
+        that agree (the Anderson weights apart: float32 sums in another
+        order move ill-conditioned weights far)."""
+        agree = (got[-1][:, :3] == ref[-1][:, :3]).all(dim=1)
+        sel = agree if lanes_ is None else lanes_[agree]
+        err32 = max(abs_err(a[sel], b[sel])
+                    for a, b in zip(leaves(got[:-1]), leaves(ref[:-1])))
+        err32 = max(err32, abs_err(got[-1][agree, :10], ref[-1][agree, :10]))
+        err32_w = abs_err(got[-1][agree, 10:13], ref[-1][agree, 10:13])
+        check(not math.isnan(err32), f"{label}: float32 outputs disagree")
+        return dict(f32_decisions_agree=int(agree.sum()),
+                    lanes=int(agree.numel()),
+                    f32_max_abs_err_agreeing=err32,
+                    f32_weights_max_abs_err_agreeing=err32_w,
+                    plain_k1_k2_loop=ref[-1][:, :3].sum(0).tolist())
 
-        def plain(args=args):
-            return spstep.sp_step_ref(data, meta, *args, g, g, **knobs)
-
-        got, ref = kernel(), plain()
-        torch.cuda.synchronize()
-        agree = (got[6][:, :3] == ref[6][:, :3]).all(dim=1)
-        # values: the six pairs and slots 0-9; the Anderson weights apart
-        # (float32 sums in another order move ill-conditioned weights far)
-        err32 = max(abs_err(a[agree], b[agree])
-                    for a, b in zip(leaves(got[:6]) + [got[6][:, :10]],
-                                    leaves(ref[:6]) + [ref[6][:, :10]]))
-        err32_w = abs_err(got[6][agree, 10:13], ref[6][agree, 10:13])
-        check(not math.isnan(err32), f"{name}: float32 outputs disagree")
-        decisions = ref[6][:, :3].sum(0).tolist()
-        extra[name] = dict(
-            f64_slot_max_abs_err=slot_err,
-            f32_decisions_agree=int(agree.sum()), lanes=B,
-            f32_max_abs_err_agreeing=err32,
-            f32_weights_max_abs_err_agreeing=err32_w,
-            plain_k1_k2_loop=decisions,
-            cached_lanes=int((cache > 0).sum()), active_lanes=int(act.sum()))
-        print(f"[step] {name}: float64 max_abs_err {max_err:.3e} (limit "
+    def report(label, max_err, slot_err, e32, what):
+        print(f"[step] {label}: float64 max_abs_err {max_err:.3e} (limit "
               f"{STEP_RTOL64} (1 + scale), Anderson weights "
               f"{STEP_WEIGHTS_RTOL64}); by output slot "
               f"{', '.join(f'{e:.1e}' for e in slot_err)}; float32 "
-              f"decisions agree on "
-              f"{int(agree.sum())}/{B} lanes (plain K1/K2/loop "
-              f"{decisions}), max_abs_err on them {err32:.3e} (Anderson "
-              f"weights {err32_w:.3e}); "
-              f"{int((cache > 0).sum())} cached, {int(act.sum())} active "
-              f"lanes [{card}]", flush=True)
-        nbytes, ops = step_bytes_ops(meta, args, got, consts)
-        rows.append(kernel_row(name, STEP_SOURCE, STEP_ROWS[base], max_err,
-                               time_ms(kernel),
+              f"decisions agree on {e32['f32_decisions_agree']}/"
+              f"{e32['lanes']} lanes (plain K1/K2/loop "
+              f"{e32['plain_k1_k2_loop']}), max_abs_err on them "
+              f"{e32['f32_max_abs_err_agreeing']:.3e} (Anderson weights "
+              f"{e32['f32_weights_max_abs_err_agreeing']:.3e}); {what} "
+              f"[{card}]", flush=True)
+
+    # ---- tau = 1 with the carry's cache flags (#7) ----
+    name = row_name("sp_step_fused_tau1", tag)
+    args64 = inputs(c.cache_valid, ones, torch.float64)
+    got64 = spstep.sp_step_fused(data64, meta64, *args64, g64, g64, **knobs)
+    torch.cuda.synchronize()
+    ref64 = spstep.sp_step_ref(data64, meta64, *args64, g64, g64, **knobs)
+    max_err, slot_err = hold_step(name, got64[:7], ref64[:7])
+    args = inputs(c.cache_valid, ones)
+
+    def tau1(args=args):
+        return spstep.sp_step_fused(data, meta, *args, g, g, **knobs)
+
+    got = tau1()
+    ref = spstep.sp_step_ref(data, meta, *args, g, g, **knobs)
+    torch.cuda.synchronize()
+    e32 = f32_agreement(name, got[:7], ref[:7])
+    cached = int((c.cache_valid & act).sum())
+    extra[name] = dict(f64_slot_max_abs_err=slot_err, **e32,
+                       cached_lanes=int(c.cache_valid.sum()),
+                       active_lanes=int(act.sum()))
+    report(name, max_err, slot_err, e32,
+           f"{int(c.cache_valid.sum())} cached ({cached} of them active), "
+           f"{int(act.sum())} active lanes")
+    nbytes, ops = step_bytes_ops(meta, args, got, consts)
+    rows.append(kernel_row(name, STEP_SOURCE, STEP_ROWS["sp_step_fused_tau1"],
+                           max_err, time_ms(tau1),
+                           time_ms(lambda: spstep.sp_step_ref(
+                               data, meta, *args, g, g, **knobs),
+                               spin=4 * SPIN_CYCLES), nbytes, ops, card))
+
+    # ---- the retrial (#6): the lanes the carry loops on, then all ----
+    looping = torch.nonzero(got64[6][:, spstep.OC_LOOP] > 0.5).flatten()
+    if looping.numel() == 0:
+        k = max(1, round(mean_lanes or 1))
+        looping = torch.nonzero(act).flatten()[:k]
+        print(f"[step] the carry leaves no lane looping: the retrial row "
+              f"takes the first {looping.numel()} active lanes", flush=True)
+    tau_bt = torch.full_like(c.r_safe, opts.beta)
+    scal_bt = inputs(c.cache_valid, tau_bt)[-1]
+    scal_bt64 = scal_bt.double()
+    # against sp_step_ref with no cache at tau = beta, on a keep with no
+    # cache: the retrial's function
+    nc64 = inputs(no_cache, ones, torch.float64)
+    keep_nc = spstep.sp_step_fused(data64, meta64, *nc64, g64, g64, **knobs)
+    ref_bt = spstep.sp_step_ref(
+        data64, meta64, *inputs(no_cache, tau_bt, torch.float64), g64, g64,
+        **knobs)
+    sc_nc = spstep.sp_step_retrial(
+        data64, meta64, *nc64[:2], keep_nc[7], nc64[9], scal_bt64, looping,
+        keep_nc[0], keep_nc[3], g64, g64, **knobs)
+    torch.cuda.synchronize()
+    fn_err, _ = hold_step(
+        row_name("sp_step_retrial vs sp_step_ref", tag),
+        (keep_nc[0], keep_nc[3], sc_nc),
+        (ref_bt[0], ref_bt[3], ref_bt[6][looping]), lanes=looping)
+    for label, lanes in (("sp_step_retrial", looping),
+                         ("sp_step_retrial_one", looping[:1]),
+                         ("sp_step_retrial_all", torch.arange(
+                             B, device=looping.device))):
+        name = row_name(label, tag)
+        # float64: kernel and plain version on the same kept zbar and d
+        zk, sk = tmap(torch.clone, got64[0]), tmap(torch.clone, got64[3])
+        zr, sr = tmap(torch.clone, got64[0]), tmap(torch.clone, got64[3])
+        out64 = spstep.sp_step_retrial(data64, meta64, *args64[:2], got64[7],
+                                       args64[9], scal_bt64, lanes, zk, sk,
+                                       g64, g64, **knobs)
+        torch.cuda.synchronize()
+        outr = spstep.sp_retrial_ref(data64, meta64, *args64[:2], got64[7],
+                                     args64[9], scal_bt64, lanes, zr, sr,
+                                     g64, g64, **knobs)
+        max_err, slot_err = hold_step(name, (zk, sk, out64), (zr, sr, outr))
+        # float32, on the float32 launch's keep
+        zk, sk = tmap(torch.clone, got[0]), tmap(torch.clone, got[3])
+        zr, sr = tmap(torch.clone, got[0]), tmap(torch.clone, got[3])
+        out32 = spstep.sp_step_retrial(data, meta, *args[:2], got[7],
+                                       args[9], scal_bt, lanes, zk, sk, g, g,
+                                       **knobs)
+        outr32 = spstep.sp_retrial_ref(data, meta, *args[:2], got[7],
+                                       args[9], scal_bt, lanes, zr, sr, g, g,
+                                       **knobs)
+        torch.cuda.synchronize()
+        e32 = f32_agreement(name, (zk, sk, out32), (zr, sr, outr32), lanes)
+        extra[name] = dict(f64_slot_max_abs_err=slot_err, **e32,
+                           retrial_lanes=int(lanes.numel()),
+                           f64_max_abs_err_vs_sp_step_ref=fn_err)
+        report(name, max_err, slot_err, e32,
+               f"{lanes.numel()} lanes at tau = {opts.beta}; against "
+               f"sp_step_ref with no cache on the looping lanes "
+               f"{fn_err:.3e}")
+        zt, st = tmap(torch.clone, got[0]), tmap(torch.clone, got[3])
+
+        def kernel(lanes=lanes, zt=zt, st=st):
+            return spstep.sp_step_retrial(data, meta, *args[:2], got[7],
+                                          args[9], scal_bt, lanes, zt, st, g,
+                                          g, **knobs)
+
+        def plain(lanes=lanes, zt=zt, st=st):
+            return spstep.sp_retrial_ref(data, meta, *args[:2], got[7],
+                                         args[9], scal_bt, lanes, zt, st, g,
+                                         g, **knobs)
+
+        nbytes, ops = retrial_bytes_ops(meta, int(lanes.numel()),
+                                        nbytes_of(leaves(args[:2])), consts)
+        rows.append(kernel_row(name, STEP_SOURCE, STEP_ROWS["sp_step_fused"],
+                               max_err, time_ms(kernel),
                                time_ms(plain, spin=4 * SPIN_CYCLES), nbytes,
                                ops, card))
+
     # the per-lane fresh-sweep skip: the launch at tau = 1 with every lane
     # cached and with none
     skip = {}
     for label, flag in (("all_cached", True), ("none_cached", False)):
-        args = sp.step_inputs(c, opts, phase, act,
-                              torch.full_like(c.cache_valid, flag), c.r_safe,
-                              ones)
+        a = inputs(torch.full_like(c.cache_valid, flag), ones)
         skip[label] = time_ms(
-            lambda args=args: spstep.sp_step_fused(data, meta, *args, g, g,
-                                                   **knobs))
+            lambda a=a: spstep.sp_step_fused(data, meta, *a, g, g, **knobs))
     skip["carry_flags"] = rows[0]["ms"]
     extra["cache_skip_ms"] = skip
     print(f"[step] {row_name('tau = 1', tag)} launch: "
@@ -562,9 +719,32 @@ def reset_counts():
     from spock_tpu_torch.ops import cuda_kernels, spstep, sweep_kernels
 
     cuda_kernels.LAUNCHES = 0
+    spstep.RETRIAL_LANES = 0
     for counts in (sweep_kernels.LAUNCHES, spstep.LAUNCHES):
         for k in counts:
             counts[k] = 0
+
+
+def check_step_farm(counts, farm_iters, label):
+    """A farm on the fused step: one sp_step_fused launch per farm iteration
+    and retrial launches, no other kernel.  Returns the retrial launches per
+    farm iteration."""
+    check(counts["sp_step_fused"] == farm_iters,
+          f"{label}: sp_step_fused launched {counts['sp_step_fused']} times "
+          f"in {farm_iters} farm iterations")
+    others = {k: c for k, c in counts.items()
+              if k not in ("sp_step_fused", "sp_step_retrial")}
+    check(not any(others.values()),
+          f"the {label} farm launched other kernels: {others}")
+    return counts["sp_step_retrial"] / farm_iters
+
+
+def step_launches(rows, counts):
+    """The launches of the step rows on their farm: the tau = 1 row's, then
+    the retrial kernel's for the retrial rows."""
+    rows[0]["launches"] = counts["sp_step_fused"]
+    for row in rows[1:]:
+        row["launches"] = counts["sp_step_retrial"]
 
 
 def farm(data, meta, x0, ws, card, device, label, warm_steps, **path):
@@ -573,6 +753,7 @@ def farm(data, meta, x0, ws, card, device, label, warm_steps, **path):
     counts set to 0 just before and read just after.  Returns both results,
     the numbers of the run and its farm iterations."""
     from spock_tpu_torch import mpc
+    from spock_tpu_torch.ops import spstep
 
     def sync():
         if device.type == "cuda":
@@ -594,6 +775,7 @@ def farm(data, meta, x0, ws, card, device, label, warm_steps, **path):
     sync()
     warm_s = time.perf_counter() - t0
     counts = launch_counts()
+    retrial_lanes = spstep.RETRIAL_LANES
     check(bool((res2.steps_done == warm_steps).all()),
           f"{label} warm phase incomplete after {res2.total_iterations} farm "
           f"iterations: steps_done={res2.steps_done.tolist()}")
@@ -613,6 +795,8 @@ def farm(data, meta, x0, ws, card, device, label, warm_steps, **path):
         launches=counts,
         launches_per_farm_iteration={k: c / farm_iters
                                      for k, c in counts.items()},
+        mean_lanes_per_retrial=(retrial_lanes / counts["sp_step_retrial"]
+                                if counts["sp_step_retrial"] else 0.0),
     )
     print(f"[{label} farm] cold {COLD_STEPS} steps: "
           f"{res1.total_iterations} farm iterations in {cold_s:.2f} s; warm "
@@ -623,7 +807,9 @@ def farm(data, meta, x0, ws, card, device, label, warm_steps, **path):
           f"farm iteration [{card}]", flush=True)
     per = ", ".join(f"{k} {c} ({c / farm_iters:.2f}/iter)"
                     for k, c in counts.items() if c)
-    print(f"[{label} farm] launches over {farm_iters} farm iterations: {per}",
+    print(f"[{label} farm] launches over {farm_iters} farm iterations: {per}"
+          + (f"; {nums['mean_lanes_per_retrial']:.2f} looping lanes per "
+             "retrial launch" if counts["sp_step_retrial"] else ""),
           flush=True)
     return res1, res2, nums, farm_iters
 
@@ -765,10 +951,11 @@ def solver_controls(runs, u_ref, card):
               f"{label}: controls {nums_['controls_err']} from the f64 solve")
 
 
-def wide_farms(spec, x0, ws, card, device, opts, pool):
+def wide_farms(spec, x0, ws, card, device, opts, pool, built):
     """The farm of 7d and phase 7b: the ``_pncost`` farm on the sweep
     kernels and the ``_navar`` farm on the fused step, each followed by the
-    submission of its float64 reference solves.  Returns their state."""
+    submission of its float64 reference solves; ``built()`` waits for the
+    step kernels' build in between.  Returns their state."""
     import dataclasses
 
     from spock_tpu_torch import build
@@ -795,22 +982,18 @@ def wide_farms(spec, x0, ws, card, device, opts, pool):
           and pcounts["candidate_sweep_fused"] >= p_iters,
           f"{PNCOST}: the farm's sweep launches {pcounts} in {p_iters} farm "
           "iterations")
-    check(pcounts["sp_step_fused"] == 0 and pcounts["prox_h_conj"] == 0,
+    check(pcounts["sp_step_fused"] == 0 and pcounts["sp_step_retrial"] == 0
+          and pcounts["prox_h_conj"] == 0,
           f"{PNCOST}: the farm launched the step or prox kernel")
     w.ref_p = submit_reference(pool, w.spec_p, w.res2_p.xs,
                                threads=REF_THREADS_PNCOST)
+    built()
 
     # 7b. the _navar farm on the fused step: sp_step_fused alone
     _, w.res2_n, w.nnums, w.n_iters = farm(
         w.data_n, w.meta_n, x0, ws, card, device, f"{NAVAR} fused-step",
         WARM_STEPS)
-    counts = w.nnums["launches"]
-    check(counts["sp_step_fused"] >= w.n_iters,
-          f"{NAVAR}: sp_step_fused launched {counts['sp_step_fused']} times "
-          f"in {w.n_iters} farm iterations")
-    others = {k: c for k, c in counts.items() if k != "sp_step_fused"}
-    check(not any(others.values()),
-          f"the {NAVAR} farm launched other kernels: {others}")
+    check_step_farm(w.nnums["launches"], w.n_iters, NAVAR)
     w.ref_n = submit_reference(pool, w.spec_n, w.res2_n.xs)
     w.ref_free = submit_reference(
         pool, dataclasses.replace(w.spec_n, polytope=None), w.res2_n.xs)
@@ -830,10 +1013,10 @@ def wide_checks(w, ws, card, device, opts):
         prow[row_name(name, PNCOST)]["launches"] = w.pnums["launches"][name]
 
     # 7c. the step kernel on a real _navar carry
-    nrows, nextra = step_kernel_checks(w.data_n, w.meta_n, w.spec_n,
-                                       w.res2_n, card, opts, tag=NAVAR)
-    nrows[0]["launches"] = w.n_iters
-    nrows[1]["launches"] = w.nnums["launches"]["sp_step_fused"]
+    nrows, nextra = step_kernel_checks(
+        w.data_n, w.meta_n, w.spec_n, w.res2_n, card, opts, tag=NAVAR,
+        mean_lanes=w.nnums["mean_lanes_per_retrial"])
+    step_launches(nrows, w.nnums["launches"])
 
     # 7d. the Solvers warm-started from the _pncost farm: #2 and #5
     cp, u_cp = solver_run(w.data_p, w.meta_p, w.res2_p, card,
@@ -902,7 +1085,8 @@ def profile_farm(data, meta, res2, ws, card, wall_ms_per_iter):
         return None
     top = [dict(name=k[2][:80], ms_per_iter=k[0] / 1e3 / iters,
                 calls_per_iter=k[1] / iters) for k in kernels[:8]]
-    step = [k for k in kernels if "sp_step_kernel" in k[2]]
+    step = [k for k in kernels
+            if "sp_step_kernel" in k[2] or "sp_retrial_kernel" in k[2]]
     step_ms = sum(k[0] for k in step) / 1e3 / iters
     step_calls = sum(k[1] for k in step) / iters
     out = dict(device_ms_per_iter=device_ms,
@@ -941,18 +1125,40 @@ def main():
     check(not torch.backends.cudnn.allow_tf32, "TF32 convolutions are on")
     device = torch.device("cuda")
 
-    # ---- 2. build ----
+    # ---- 2. build: sp_step compiles beside phase 3 and the _pncost farm
     t0 = time.perf_counter()
-    _build.build_all()
-    build_s = time.perf_counter() - t0
-    for name, (sec, log) in _build.BUILD_LOG.items():
-        print(f"[build] {name}: nvcc {sec:.1f} s\n{log.strip()}", flush=True)
-    print(f"[build] all kernels ready in {build_s:.1f} s", flush=True)
+    _build.build_all(["cp_sweep", "metric_apply", "prox_h_conj"])
+    builder = concurrent.futures.ThreadPoolExecutor(1)
+    step_build = builder.submit(_build.build_all)
+
+    @functools.cache
+    def built():
+        """Waits for every build (a failed one raises) and reports it:
+        (seconds to the last library, ptxas summaries)."""
+        step_build.result()
+        build_s = time.perf_counter() - t0
+        for name, (sec, log) in _build.BUILD_LOG.items():
+            print(f"[build] {name}: nvcc {sec:.1f} s\n{log.strip()}",
+                  flush=True)
+        print(f"[build] all kernels ready {build_s:.1f} s after the build "
+              "started", flush=True)
+        ptxas = {}
+        for name, (_, log) in _build.BUILD_LOG.items():
+            for entry, info in ptxas_summary(log).items():
+                ptxas[entry] = info
+                print(f"[ptxas] {name}: {entry}: {info.get('registers')} "
+                      f"registers, spill stores {info.get('spill_stores')} / "
+                      f"loads {info.get('spill_loads')} bytes, static shared "
+                      f"memory {info.get('static_smem')} bytes", flush=True)
+        return build_s, ptxas
 
     # the float64 CPU reference solves run in these workers, stopped on
     # the way out whatever happens
-    with multiprocessing.get_context("spawn").Pool(REF_WORKERS) as pool:
-        result = smoke(card, device, build_s, pool)
+    try:
+        with multiprocessing.get_context("spawn").Pool(REF_WORKERS) as pool:
+            result = smoke(card, device, pool, built)
+    finally:
+        builder.shutdown(wait=True)
     print(card, flush=True)
     print(json.dumps({"kernels": result["kernels"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -960,10 +1166,12 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def smoke(card, device, build_s, pool):
-    """Phases 3-7; returns the numbers written to build/chip_smoke.json."""
+def smoke(card, device, pool, built):
+    """Phases 3-7; ``built()`` waits for the step kernels' build.  Returns
+    the numbers written to build/chip_smoke.json."""
     from spock_tpu_torch import SuperMannOpts, build
     from spock_tpu_torch.models import server_heat
+    from spock_tpu_torch.ops import spstep
 
     spec = server_heat.make_spec(N=N, nx=NX, d=D)
     data, meta = build(spec, dtype=torch.float32)
@@ -983,27 +1191,28 @@ def smoke(card, device, build_s, pool):
     # ---- 7d, 7b: the wider class's farms first, whose reference solves
     # then run beside the phases below ----
     opts = SuperMannOpts()
-    wide_state = wide_farms(spec, x0, ws, card, device, opts, pool)
+    wide_state = wide_farms(spec, x0, ws, card, device, opts, pool, built)
+    build_s, ptxas = built()
+    plans = {str(dt): spstep.smem_plan(data, meta, dt)
+             for dt in (torch.float32, torch.float64)}
+    for dt, plan in plans.items():
+        print(f"[ptxas] step kernels, {dt}: {plan['bytes']} bytes of "
+              f"dynamic shared memory per block, costates in shared memory "
+              f"{plan['costates_in_shared_memory']}, "
+              f"{plan['riccati_groups']} Riccati node groups", flush=True)
 
     # ---- 4a. the main path: the farm on the fused step ----
     res1, res2, nums, farm_iters = farm(data, meta, x0, ws, card, device,
                                         "fused-step", WARM_STEPS)
-    counts = nums["launches"]
-    check(counts["sp_step_fused"] >= farm_iters,
-          f"sp_step_fused launched {counts['sp_step_fused']} times in "
-          f"{farm_iters} farm iterations")
-    others = {k: c for k, c in counts.items() if k != "sp_step_fused"}
-    check(not any(others.values()),
-          f"the fused-step farm launched other kernels: {others}")
-    nums["retrials_per_farm_iteration"] = (
-        counts["sp_step_fused"] - farm_iters) / farm_iters
+    nums["retrials_per_farm_iteration"] = check_step_farm(
+        nums["launches"], farm_iters, "fused-step")
     ref = submit_reference(pool, spec, res2.xs)
 
     # ---- 3, step rows: the step kernel on a real carry ----
-    step_rows, step_extra = step_kernel_checks(data, meta, spec, res2, card,
-                                               opts)
-    step_rows[0]["launches"] = farm_iters  # one tau = 1 launch per iteration
-    step_rows[1]["launches"] = counts["sp_step_fused"]
+    step_rows, step_extra = step_kernel_checks(
+        data, meta, spec, res2, card, opts,
+        mean_lanes=nums["mean_lanes_per_retrial"])
+    step_launches(step_rows, nums["launches"])
     kernels += step_rows
 
     # ---- 4b. the fused sweep (fused_step=False): kernels #3 and #4 ----
@@ -1015,8 +1224,8 @@ def smoke(card, device, build_s, pool):
     check(scounts["candidate_sweep_fused"] >= s_iters,
           f"candidate_sweep_fused launched {scounts['candidate_sweep_fused']} "
           f"times in {s_iters} farm iterations")
-    check(scounts["sp_step_fused"] == 0,
-          "the fused-sweep farm launched sp_step_fused")
+    check(scounts["sp_step_fused"] == 0 and scounts["sp_step_retrial"] == 0,
+          "the fused-sweep farm launched a step kernel")
     for name in ("cp_sweep_metric_fused", "candidate_sweep_fused"):
         rows[name]["launches"] = scounts[name]
 
@@ -1069,7 +1278,8 @@ def smoke(card, device, build_s, pool):
                   build_s=build_s, kernels=kernels, step=step_extra,
                   fused_step_farm=nums, fused_sweep_farm=snums,
                   composed_farm=cnums, cp_solve=cp, broyden_solve=broyden,
-                  controls_max_err=err, profile=prof, wide=wide)
+                  controls_max_err=err, profile=prof, wide=wide,
+                  ptxas=ptxas, step_smem=plans)
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)

@@ -23,7 +23,8 @@ JAX package's ``SPOCK_PALLAS_SWEEP``, given as an argument.
 launch (``ops.spstep.sp_step_fused``) where :func:`use_fused_step` holds:
 Anderson window 3, no K0, the fused sweep, a problem the kernels cover.  Its
 carry is :class:`SPCarryF`, driven by :func:`sp_body_fused` in a 3-phase
-unroll; backtracking relaunches the same kernel at the shrunken per-lane tau.
+unroll; a backtracking retrial is one ``ops.spstep.sp_step_retrial`` launch
+for the lanes still looping, at their shrunken tau.
 It is the counterpart of the JAX package's ``SPOCK_FUSED_STEP``.
 """
 
@@ -388,8 +389,8 @@ def sp_body(data: ProblemData, meta: ProblemMeta, tol,
 
 
 # ---------------------------------------------------------------------------
-# The fused step: one sp_step_fused launch per iteration (plus one per
-# backtracking retrial)
+# The fused step: one sp_step_fused launch per iteration (plus one
+# sp_step_retrial launch per backtracking retrial)
 # ---------------------------------------------------------------------------
 
 
@@ -492,38 +493,43 @@ def sp_body_fused(data: ProblemData, meta: ProblemMeta, tol,
         B = c.done.shape[0]
         dtype, device = c.r_safe.dtype, c.r_safe.device
         active = ~c.done
-
-        def step(act, cache, r_safe, tau):
-            return spstep.sp_step_fused(
-                data, meta, *step_inputs(c, opts, phase, act, cache, r_safe,
-                                         tau),
-                gamma, sigma, c1=opts.c1, sigma_k2=opts.sigma_k2,
-                lam=opts.lam, lam_sp=opts.lam_sp)
-
+        knobs = dict(c1=opts.c1, sigma_k2=opts.sigma_k2, lam=opts.lam,
+                     lam_sp=opts.lam_sp)
         ones = torch.ones((B,), dtype=dtype, device=device)
-        z_new, w, r, s, y, p, sc = step(active, c.cache_valid, c.r_safe, ones)
+        z_new, w, r, s, y, p, sc, keep = spstep.sp_step_fused(
+            data, meta, *step_inputs(c, opts, phase, active, c.cache_valid,
+                                     c.r_safe, ones),
+            gamma, sigma, **knobs)
         k1_first = sc[:, spstep.OC_K1] > 0.5
         looping = sc[:, spstep.OC_LOOP] > 0.5
         r_safe = sc[:, spstep.OC_RSAFE]
         xi1, xi2 = sc[:, spstep.OC_XI1], sc[:, spstep.OC_XI2]
-        # backtracking: relaunch the same kernel for the lanes still looping,
-        # with no cache and tau <- beta tau; phases 1-2 are recomputed (z has
-        # not moved), and only lanes that accept take the retrial's outputs
+        # backtracking: a retrial launch for the lanes still looping, at tau
+        # <- beta tau, on the zbar and d the tau = 1 launch kept (z has not
+        # moved); it writes z_new and s in place at those lanes, and the
+        # lanes that accept take its scalars
         tau = torch.full((B,), opts.beta, dtype=dtype, device=device)
-        no_cache = torch.zeros((B,), dtype=torch.bool, device=device)
-        bt = 1
-        while bt <= opts.max_backtracks and bool(looping.any()):
-            z2, _, _, s2, _, _, sc2 = step(looping, no_cache, r_safe, tau)
-            acc = looping & ((sc2[:, spstep.OC_K1] > 0.5)
-                             | (sc2[:, spstep.OC_K2] > 0.5))
-            z_new = bwhere(acc, z2, z_new)
-            s = bwhere(acc, s2, s)
-            r_safe = torch.where(acc, sc2[:, spstep.OC_RSAFE], r_safe)
-            xi1 = torch.where(acc, sc2[:, spstep.OC_XI1], xi1)
-            xi2 = torch.where(acc, sc2[:, spstep.OC_XI2], xi2)
-            looping = looping & (sc2[:, spstep.OC_LOOP] > 0.5)
+        for _ in range(opts.max_backtracks):
+            lanes = torch.nonzero(looping).flatten()  # the loop's host sync
+            if lanes.numel() == 0:
+                break
+            scal = step_inputs(c, opts, phase, looping, c.cache_valid,
+                               r_safe, tau)[-1]
+            sc2 = spstep.sp_step_retrial(data, meta, c.z, c.v, keep, c.x0,
+                                         scal, lanes, z_new, s, gamma, sigma,
+                                         **knobs)
+            acc = (sc2[:, spstep.OC_K1] > 0.5) | (sc2[:, spstep.OC_K2] > 0.5)
+
+            def take(old, slot):
+                return old.index_copy(0, lanes, torch.where(
+                    acc, sc2[:, slot], old[lanes]))
+
+            r_safe = take(r_safe, spstep.OC_RSAFE)
+            xi1 = take(xi1, spstep.OC_XI1)
+            xi2 = take(xi2, spstep.OC_XI2)
+            looping = looping.index_copy(0, lanes,
+                                         sc2[:, spstep.OC_LOOP] > 0.5)
             tau = torch.where(looping, tau * opts.beta, tau)
-            bt += 1
 
         conv, res0 = check_termination(xi1, xi2, c.res0, tol)
         return SPCarryF(

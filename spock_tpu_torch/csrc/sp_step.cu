@@ -1,85 +1,122 @@
-// One whole SuperMann iteration per lane in one launch, for Hopper (sm_90a).
+// One whole SuperMann iteration per lane in one launch, and its backtracking
+// retrials, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels
 //   spock_tpu/ops/pallas_spstep.py:1340     sp_step_fused (lane-packed)
 //   spock_tpu/ops/pallas_spstep_lt.py:1093  sp_step_fused (lane-tiled)
 // the first at any per-lane tau, the second at tau = 1.
-// Their plain PyTorch version is sp_step_ref in spock_tpu_torch/ops/spstep.py,
-// which also holds the wrapper, the launch count and the checks.
+// Their plain PyTorch versions are sp_step_ref and sp_retrial_ref in
+// spock_tpu_torch/ops/spstep.py, which also holds the wrappers, the launch
+// counts and the checks.
 //
 // It takes the JAX step kernels' problem class: uniform costs, risk data
-// uniform or per node, with or without polytope rows.
+// uniform or per node, with or without polytope rows (and nx, nu, ny + 2 d
+// and the polytope rows of a node at most 32).
 //
-// What one launch computes for every lane, from its scalar pack (active,
-// valid1, valid2, cache, r_safe, q_pow, rnorm_c, nMrz_c, nMrv_c, tau):
+// sp_step, one block per lane, from its scalar pack (active, valid1,
+// valid2, cache, r_safe, q_pow, rnorm_c, nMrz_c, nMrv_c, tau):
 //   1. (zbar, vbar): the cache pair if the lane's cache flag is set, else a
-//      fresh sweep at (z, v) (sweep_body.cuh) with ||r||_M and the inf-norms
-//      of M r, into a scratch pair; the choice is a pointer, not a copy;
+//      fresh sweep at (z, v) (step_body.cuh) with ||r||_M and the inf-norms
+//      of M r, into the kept ``fresh`` pair; the choice is a pointer;
 //   2. r = (z, v) - (zbar, vbar); y = r - valid1 r_prev; p = valid1 s_prev - y
-//      (written: the caller's new Anderson row pair); the next r_prev; in
-//      the same pass the nine sums of the window-3 Gram of (y, y1, y2) and of
-//      its right side against r, with y1, y2 the rows of age 1 and 2; the
-//      regularised closed-form 3x3 solve for (g0, g1, g2), and a second pass
-//      d = -r - g0 p - g1 p1 - g2 p2 into a scratch pair;
+//      (the caller's new Anderson row pair); the next r_prev; in the same
+//      pass the nine sums of the window-3 Gram of (y, y1, y2) and of its
+//      right side against r; the regularised, scaled closed-form 3x3 solve
+//      for (g0, g1, g2), and d = -r - g0 p - g1 p1 - g2 p2 into the kept
+//      ``d`` pair;
 //   3. the candidate sweep at (z, v) + tau d into w, the next cache:
 //      <r~, M r~>, <r~, M d> and the four inf-norms (M r~, M d not stored);
 //   4. thread 0 makes the K1 / K2 / fallback choice; a last pass writes
-//      z_new and s_new = z_new - z, then the 13 output scalars.
-// y, p and w are written for every lane; z_new, r and s move only for
-// active lanes.  All reductions are fixed-order block reductions, so a
-// launch is deterministic.
+//      z_new and s_new = z_new - z, then the 13 output scalars, and the
+//      lane's kept scalars (||r||_M, the inf-norms of M r, g0-g2, cached).
+// sp_retrial, one block per looping lane of a backtracking retrial (a list
+// of lanes, all active): phases 3 and 4 only, at the lane's tau, on the z̄
+// and d that the tau = 1 launch kept (z has not moved, so phases 1-2 would
+// compute them again); z_new and s are written in place into the tau = 1
+// launch's outputs at those lanes, the output scalars compactly.
+// All reductions are fixed-order block reductions: launches are
+// deterministic.
 //
 // What bounds it: memory.  A lane reads 8 pairs (z, cache, r_prev, s_prev
 // and the four Anderson rows) and writes 6 (z_new, w, r, s, y, p); at the
 // headline size (B = 128 lanes of server_heat N=10 nx=nu=20 d=2, float32,
 // 123,214 values a pair) that is 14 x 63.1 MB = 883 MB, 0.26 ms at
 // 3.35 TB/s, against ~3.5 GFLOP of arithmetic (0.05 ms at 67 TFLOP/s).
+// A retrial of k lanes needs k / 128 of 6 pair passes (z, d, zbar, z_new,
+// s, and w once).
 //
-// Design (simple and right first): one thread block of 512 threads per lane,
-// as in cp_sweep.cu, so the per-lane cache skip is a branch of the block and
-// the Gram, the 3x3 solve and the K1/K2 choice need no second launch.  The
-// passes stream each of the 19 blocks of the lane's pairs with neighbouring
-// threads on neighbouring addresses; the Anderson rows are read in place
-// (the caller binds them by iteration phase, so no history is ever copied);
-// M r~ and M d are reduced element by element without being stored.  The
-// two scratch pairs and re-reading z and the direction in phases 2-4 cost
-// about 6 more pair passes than the bound counts; nothing more is done
-// about the memory bound yet.
+// Design.  One 512-thread block per lane (16 warps; its sweeps need the
+// whole lane).  The sweeps (step_body.cuh) compute L and L' a node per
+// thread from columns held in registers and matrices staged once in shared
+// memory, fuse the S2 projector and the cone projections into the passes
+// that form their arguments, compute M r and M d in one traversal, and run
+// the Riccati sweeps a node per thread group with the stage's matrices and
+// costates in shared memory (135 KB of it in float32, 221 KB in float64 at
+// the headline size).  The streaming passes of phases 2 and 4 load four
+// elements a thread before they store, neighbouring threads on neighbouring
+// addresses.  A retrial runs no phase 1-2 and only for the looping lanes.
+// On the H100 a lane is bound by the latency of its own block (the waits
+// for device memory of a node's thread and the Riccati stages), not by
+// bandwidth: a retrial of one lane takes most of the time of one of all
+// 128 (chip_smoke.py times both).
 
-#include "sweep_body.cuh"
+#include "step_body.cuh"
 
 namespace spock {
 namespace {
 
-// Slots of the [B, 10] scalar pack and of the [B, 16] output scalars (the
-// JAX kernel's _SC_* and _OC_* numbers).
+// Slots of the [B, 10] scalar pack, of the [B, 16] output scalars (the JAX
+// kernel's _SC_* and _OC_* numbers) and of the [B, 8] kept scalars.
 constexpr int kScIn = 10;
 constexpr int kScOut = 16;
+constexpr int kKeep = 8;
 enum { SC_ACTIVE, SC_VALID1, SC_VALID2, SC_CACHE, SC_RSAFE, SC_QPOW, SC_RNC,
        SC_NMZC, SC_NMVC, SC_TAU };
 enum { OC_K1, OC_K2, OC_LOOP, OC_RN, OC_RT, OC_RSAFE, OC_XI1, OC_XI2,
        OC_NMRWZ, OC_NMRWV, OC_G0, OC_G1, OC_G2, kOcUsed };
+enum { KP_RN, KP_NMZ, KP_NMV, KP_G0, KP_G1, KP_G2, KP_CACHED };
 
 constexpr int kInPairs = 8;
 constexpr int kOutPairs = 6;
 
 template <typename T>
 struct StepParams {
-  SweepConsts<T> k;
+  StepConsts<T> x;
   // inputs: z, cache, r_prev, s_prev, the MR rows of age 1 and 2, the MP
   // rows of age 1 and 2
   Pair<T> z, cache, rp, sp, a1r, a2r, a1p, a2p;
   Pair<T> zn, w, r, s, y, p;  // outputs
-  Pair<T> fresh, d;           // scratch: the fresh sweep, the direction
+  Pair<T> fresh, d;           // kept: the fresh sweep, the direction
   const T* x0;    // [B, nx]
   const T* scal;  // [B, kScIn]
   T* oscal;       // [B, kScOut]
+  T* keep;        // [B, kKeep]
+  T* gdv;         // scratch [B, n_nl ldu]
+  T* qg;          // scratch [B, qsize] (costates outside shared memory)
   T c1, sigma_k2, lam, lam_sp;
 };
 
-// 16 pairs of 19 pointers and the sweep's constants: within the 4 KB of
-// kernel parameters that every CUDA 12 toolkit takes.
+template <typename T>
+struct RetrialParams {
+  StepConsts<T> x;
+  Pair<T> z, cache, fresh, d;  // inputs, by lane
+  Pair<T> zn, s;               // the tau = 1 launch's outputs, by lane
+  Pair<T> w;                   // scratch: the candidate's sweep, by slot
+  const int64_t* lanes;        // [k] the lane of each slot
+  const T* x0;                 // [B, nx]
+  const T* scal;               // [B, kScIn]
+  const T* keep;               // [B, kKeep]
+  T* oscal;                    // [k, kScOut]
+  T* gdv;                      // scratch [k, n_nl ldu]
+  T* qg;                       // scratch [k, qsize]
+  T c1, sigma_k2, lam, lam_sp;
+};
+
+// 16 pairs of 19 pointers and the constants: within the 4 KB of kernel
+// parameters that every CUDA 12 toolkit takes.
 static_assert(sizeof(StepParams<double>) <= 4096, "kernel parameters > 4 KB");
+static_assert(sizeof(RetrialParams<double>) <= 4096,
+              "kernel parameters > 4 KB");
 
 template <typename T>
 __device__ __forceinline__ T nonneg(T x) {
@@ -87,12 +124,130 @@ __device__ __forceinline__ T nonneg(T x) {
   return x < T(0) ? T(0) : x;
 }
 
+template <typename T, int K>
+struct Vals {
+  T v[K];
+};
+
+// Calls use(i, load(i)) for the elements i = tid, tid + kThreads, ... of a
+// lane's array of ``size`` values, kStream at a time: the loads of kStream
+// elements are in flight together before their stores, so a thread waits
+// for device memory once per kStream elements.  The elements of a thread come
+// in the same order as one at a time.
+constexpr int kStream = 4;
+
+template <class Load, class Use>
+__device__ __forceinline__ void stream(int size, Load&& load, Use&& use) {
+  using V = decltype(load(0));
+  for (int i0 = threadIdx.x; i0 < size; i0 += kStream * kThreads) {
+    V v[kStream];
+#pragma unroll
+    for (int k = 0; k < kStream; ++k) {
+      const int i = i0 + k * kThreads;
+      if (i < size) v[k] = load(i);
+    }
+#pragma unroll
+    for (int k = 0; k < kStream; ++k) {
+      const int i = i0 + k * kThreads;
+      if (i < size) use(i, v[k]);
+    }
+  }
+}
+
+// What phase 4 needs besides the candidate sweep.
+template <typename T>
+struct CommitIn {
+  T rn, nmz, nmv;  // ||r||_M and the inf-norms of M r at (z, v)
+  T r_safe, q_pow, tau;
+  T g0, g1, g2;
+  bool act;
+};
+
+// Phase 4 of one lane: thread 0 makes the K1 / K2 / fallback choice and
+// writes the output scalars to ``out``; then every thread writes its share
+// of z_new and s (s = s_prev on an inactive lane; ``sp`` may be null when
+// every lane is active).
+template <typename T, class Params>
+__device__ void commit(const Params& P, const SweepRed<T>& cand,
+                       const CommitIn<T>& ci, const Lane<T>& z,
+                       const Lane<T>& d, const Lane<T>& wbar,
+                       const Lane<T>& zbar, const Lane<T>* sp,
+                       const Lane<T>& zn, const Lane<T>& s, T* out,
+                       T* choice) {
+  const Geo& g = P.x.k.g;
+  const int tid = threadIdx.x;
+  const T tau = ci.tau;
+  const bool act = ci.act;
+  if (tid == 0) {
+    const T gamma = P.x.k.gamma, sigma = P.x.k.sigma;
+    const T rn = ci.rn;
+    const T rtsq = nonneg(cand.dot);
+    const T rt = root(rtsq);
+    const bool k1 = act && rn <= ci.r_safe && rt <= P.c1 * rn;
+    const T rho = rtsq - tau * cand.rho;
+    const bool k2 = act && !k1 && rho >= P.sigma_k2 * rn * rt;
+    const T coef = P.lam_sp * (rtsq > T(0) ? rho / rtsq : T(0));
+    const bool looping = act && !k1 && !k2;
+    choice[0] = k1 ? T(1) : T(0);
+    choice[1] = k2 ? T(1) : T(0);
+    choice[2] = coef;
+    out[OC_K1] = choice[0];
+    out[OC_K2] = choice[1];
+    out[OC_LOOP] = looping ? T(1) : T(0);
+    out[OC_RN] = rn;
+    out[OC_RT] = rt;
+    out[OC_RSAFE] = k1 ? rt + ci.q_pow : ci.r_safe;
+    out[OC_XI1] = k1 ? tau * cand.ndz / gamma
+                     : (k2 ? coef * cand.nz / gamma : P.lam * ci.nmz / gamma);
+    out[OC_XI2] = k1 ? tau * cand.ndv / sigma
+                     : (k2 ? coef * cand.nv / sigma : P.lam * ci.nmv / sigma);
+    out[OC_NMRWZ] = cand.nz;
+    out[OC_NMRWV] = cand.nv;
+    out[OC_G0] = ci.g0;
+    out[OC_G1] = ci.g1;
+    out[OC_G2] = ci.g2;
+    for (int k = kOcUsed; k < kScOut; ++k) out[k] = T(0);
+  }
+  __syncthreads();
+  const bool k1 = choice[0] != T(0);
+  const bool k2 = choice[1] != T(0);
+  const T coef = choice[2];
+  const T lam = P.lam;
+  for (int b = 0; b < kPairBlocks; ++b) {
+    const T* zz = z.p[b];
+    const T* dd = d.p[b];
+    const T* wb = wbar.p[b];
+    const T* zb = zbar.p[b];
+    const T* spb = act ? nullptr : sp->p[b];
+    T* zo = zn.p[b];
+    T* so = s.p[b];
+    stream(g.lsz[b],
+           [&](int i) {
+             return Vals<T, 5>{
+                 {zz[i], dd[i], wb[i], zb[i], spb ? spb[i] : T(0)}};
+           },
+           [&](int i, const Vals<T, 5>& e) {
+             const T zv = e.v[0];
+             const T wv = zv + tau * e.v[1];
+             const T zk2 = zv - coef * (wv - e.v[2]);
+             const T zfb =
+                 lam == T(1) ? e.v[3] : lam * e.v[3] + (T(1) - lam) * zv;
+             const T zv_new = act ? (k1 ? wv : (k2 ? zk2 : zfb)) : zv;
+             zo[i] = zv_new;
+             so[i] = act ? zv_new - zv : e.v[4];
+           });
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 sp_step_kernel(const __grid_constant__ StepParams<T> P) {
-  __shared__ T sh[kThreads];
-  __shared__ T choice[3];  // k1, k2, coef
-  const Geo& g = P.k.g;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  __shared__ Lane<T> lz, lzb, lrp, lsp, la1r, la2r, la1p, la2p;
+  __shared__ Lane<T> lzn, lw, lr, ls, ly, lp, lf, ld;
+  __shared__ T choice[3];
+  const Geo& g = P.x.k.g;
   const int64_t lane = blockIdx.x;
   const int tid = threadIdx.x;
   const T* sc = P.scal + lane * kScIn;
@@ -102,52 +257,71 @@ sp_step_kernel(const __grid_constant__ StepParams<T> P) {
   const bool cached = sc[SC_CACHE] > T(0);
   const T tau = sc[SC_TAU];
   const T* x0 = P.x0 + lane * g.nx;
+  T* gdv = P.gdv + lane * g.n_nl * P.x.s.ldu;
+  T* qg = P.qg + lane * P.x.s.qsize;
+  make_lane(lz, P.z, lane, g);
+  make_lane(lzb, cached ? P.cache : P.fresh, lane, g);
+  make_lane(lrp, P.rp, lane, g);
+  make_lane(lsp, P.sp, lane, g);
+  make_lane(la1r, P.a1r, lane, g);
+  make_lane(la2r, P.a2r, lane, g);
+  make_lane(la1p, P.a1p, lane, g);
+  make_lane(la2p, P.a2p, lane, g);
+  make_lane(lzn, P.zn, lane, g);
+  make_lane(lw, P.w, lane, g);
+  make_lane(lr, P.r, lane, g);
+  make_lane(ls, P.s, lane, g);
+  make_lane(ly, P.y, lane, g);
+  make_lane(lp, P.p, lane, g);
+  make_lane(lf, P.fresh, lane, g);
+  make_lane(ld, P.d, lane, g);
+  stage_consts(P.x, sm);
+  __syncthreads();
 
   // ---- phase 1: the fresh sweep, skipped by a lane with a valid cache ----
   SweepRed<T> fresh{T(0), T(0), T(0), T(0), T(0), T(0)};
   if (!cached) {
-    const Ref<T> z{&P.z, &g, lane};
-    fresh = sweep_lane<T, true, false>(P.k, lane, Cand<T, false>{z, z, T(0)},
-                                       Ref<T>{&P.fresh, &g, lane}, nullptr,
-                                       x0, sh);
+    fresh = step_sweep<T, false>(P.x, lz, lz, T(0), lf, gdv, qg, x0, sm);
   }
-  const Pair<T>& zb = cached ? P.cache : P.fresh;
 
   // ---- phase 2: residual, Anderson rows, Gram sums ----
   T acc[9];
   for (int k = 0; k < 9; ++k) acc[k] = T(0);
   for (int b = 0; b < kPairBlocks; ++b) {
-    const int64_t off = lane * g.lsz[b];
-    const T* z = P.z.p[b] + off;
-    const T* zbar = zb.p[b] + off;
-    const T* rp = P.rp.p[b] + off;
-    const T* sp = P.sp.p[b] + off;
-    const T* a1 = P.a1r.p[b] + off;
-    const T* a2 = P.a2r.p[b] + off;
-    T* yo = P.y.p[b] + off;
-    T* po = P.p.p[b] + off;
-    T* ro = P.r.p[b] + off;
-    for (int i = tid; i < g.lsz[b]; i += kThreads) {
-      const T r = z[i] - zbar[i];
-      const T rprev = rp[i];
-      const T y = r - hp * rprev;
-      const T p = hp * sp[i] - y;
-      yo[i] = y;
-      po[i] = p;
-      ro[i] = act ? r : rprev;
-      const T y1 = a1[i], y2 = a2[i];
-      acc[0] += y * y;
-      acc[1] += y * y1;
-      acc[2] += y * y2;
-      acc[3] += y1 * y1;
-      acc[4] += y1 * y2;
-      acc[5] += y2 * y2;
-      acc[6] += y * r;
-      acc[7] += y1 * r;
-      acc[8] += y2 * r;
-    }
+    const T* z = lz.p[b];
+    const T* zbar = lzb.p[b];
+    const T* rp = lrp.p[b];
+    const T* sp = lsp.p[b];
+    const T* a1 = la1r.p[b];
+    const T* a2 = la2r.p[b];
+    T* yo = ly.p[b];
+    T* po = lp.p[b];
+    T* ro = lr.p[b];
+    stream(g.lsz[b],
+           [&](int i) {
+             return Vals<T, 6>{{z[i], zbar[i], rp[i], sp[i], a1[i], a2[i]}};
+           },
+           [&](int i, const Vals<T, 6>& e) {
+             const T r = e.v[0] - e.v[1];
+             const T rprev = e.v[2];
+             const T y = r - hp * rprev;
+             const T p = hp * e.v[3] - y;
+             yo[i] = y;
+             po[i] = p;
+             ro[i] = act ? r : rprev;
+             const T y1 = e.v[4], y2 = e.v[5];
+             acc[0] += y * y;
+             acc[1] += y * y1;
+             acc[2] += y * y2;
+             acc[3] += y1 * y1;
+             acc[4] += y1 * y2;
+             acc[5] += y2 * y2;
+             acc[6] += y * r;
+             acc[7] += y1 * r;
+             acc[8] += y2 * r;
+           });
   }
-  for (int k = 0; k < 9; ++k) acc[k] = block_sum(acc[k], sh);
+  block_reduce(acc, 9, sm + P.x.s.work);
 
   // regularised closed-form 3x3 solve (anderson._solve3), rows of age 1 and
   // 2 masked by their validity; every thread computes the same gammas
@@ -187,142 +361,247 @@ sp_step_kernel(const __grid_constant__ StepParams<T> P) {
 
   // d = -r - g0 p - g1 p1 - g2 p2 (each thread reads back its own p)
   for (int b = 0; b < kPairBlocks; ++b) {
-    const int64_t off = lane * g.lsz[b];
-    const T* z = P.z.p[b] + off;
-    const T* zbar = zb.p[b] + off;
-    const T* po = P.p.p[b] + off;
-    const T* p1 = P.a1p.p[b] + off;
-    const T* p2 = P.a2p.p[b] + off;
-    T* dd = P.d.p[b] + off;
-    for (int i = tid; i < g.lsz[b]; i += kThreads) {
-      const T r = z[i] - zbar[i];
-      dd[i] = -r - gam0 * po[i] - gam1 * p1[i] - gam2 * p2[i];
-    }
+    const T* z = lz.p[b];
+    const T* zbar = lzb.p[b];
+    const T* po = lp.p[b];
+    const T* p1 = la1p.p[b];
+    const T* p2 = la2p.p[b];
+    T* dd = ld.p[b];
+    stream(g.lsz[b],
+           [&](int i) {
+             return Vals<T, 5>{{z[i], zbar[i], po[i], p1[i], p2[i]}};
+           },
+           [&](int i, const Vals<T, 5>& e) {
+             const T r = e.v[0] - e.v[1];
+             dd[i] = -r - gam0 * e.v[2] - gam1 * e.v[3] - gam2 * e.v[4];
+           });
   }
-  __syncthreads();
 
   // ---- phase 3: the candidate sweep at (z, v) + tau d into w ----
-  const SweepRed<T> cand = sweep_lane<T, true, true>(
-      P.k, lane,
-      Cand<T, true>{Ref<T>{&P.z, &g, lane}, Ref<T>{&P.d, &g, lane}, tau},
-      Ref<T>{&P.w, &g, lane}, nullptr, x0, sh);
+  const SweepRed<T> cand =
+      step_sweep<T, true>(P.x, lz, ld, tau, lw, gdv, qg, x0, sm);
 
-  // ---- phase 4: K1 / K2 / fallback and the commit ----
+  // ---- phase 4: K1 / K2 / fallback, the commit and the kept scalars ----
+  const CommitIn<T> ci{cached ? sc[SC_RNC] : root(nonneg(fresh.dot)),
+                       cached ? sc[SC_NMZC] : fresh.nz,
+                       cached ? sc[SC_NMVC] : fresh.nv,
+                       sc[SC_RSAFE], sc[SC_QPOW], tau, gam0, gam1, gam2, act};
+  commit(P, cand, ci, lz, ld, lw, lzb, &lsp, lzn, ls,
+         P.oscal + lane * kScOut, choice);
   if (tid == 0) {
-    const T gamma = P.k.gamma, sigma = P.k.sigma;
-    const T rn = cached ? sc[SC_RNC] : root(nonneg(fresh.dot));
-    const T nmz = cached ? sc[SC_NMZC] : fresh.nz;
-    const T nmv = cached ? sc[SC_NMVC] : fresh.nv;
-    const T rtsq = nonneg(cand.dot);
-    const T rt = root(rtsq);
-    const T r_safe = sc[SC_RSAFE];
-    const bool k1 = act && rn <= r_safe && rt <= P.c1 * rn;
-    const T rho = rtsq - tau * cand.rho;
-    const bool k2 = act && !k1 && rho >= P.sigma_k2 * rn * rt;
-    const T coef = P.lam_sp * (rtsq > T(0) ? rho / rtsq : T(0));
-    const bool looping = act && !k1 && !k2;
-    choice[0] = k1 ? T(1) : T(0);
-    choice[1] = k2 ? T(1) : T(0);
-    choice[2] = coef;
-    T* out = P.oscal + lane * kScOut;
-    out[OC_K1] = choice[0];
-    out[OC_K2] = choice[1];
-    out[OC_LOOP] = looping ? T(1) : T(0);
-    out[OC_RN] = rn;
-    out[OC_RT] = rt;
-    out[OC_RSAFE] = k1 ? rt + sc[SC_QPOW] : r_safe;
-    out[OC_XI1] = k1 ? tau * cand.ndz / gamma
-                     : (k2 ? coef * cand.nz / gamma : P.lam * nmz / gamma);
-    out[OC_XI2] = k1 ? tau * cand.ndv / sigma
-                     : (k2 ? coef * cand.nv / sigma : P.lam * nmv / sigma);
-    out[OC_NMRWZ] = cand.nz;
-    out[OC_NMRWV] = cand.nv;
-    out[OC_G0] = gam0;
-    out[OC_G1] = gam1;
-    out[OC_G2] = gam2;
-    for (int k = kOcUsed; k < kScOut; ++k) out[k] = T(0);
-  }
-  __syncthreads();
-  const bool k1 = choice[0] != T(0);
-  const bool k2 = choice[1] != T(0);
-  const T coef = choice[2];
-  const T lam = P.lam;
-  for (int b = 0; b < kPairBlocks; ++b) {
-    const int64_t off = lane * g.lsz[b];
-    const T* z = P.z.p[b] + off;
-    const T* dd = P.d.p[b] + off;
-    const T* wbar = P.w.p[b] + off;
-    const T* zbar = zb.p[b] + off;
-    const T* sp = P.sp.p[b] + off;
-    T* zo = P.zn.p[b] + off;
-    T* so = P.s.p[b] + off;
-    for (int i = tid; i < g.lsz[b]; i += kThreads) {
-      const T zv = z[i];
-      const T wv = zv + tau * dd[i];
-      const T zk2 = zv - coef * (wv - wbar[i]);
-      const T zfb = lam == T(1) ? zbar[i] : lam * zbar[i] + (T(1) - lam) * zv;
-      const T zn = act ? (k1 ? wv : (k2 ? zk2 : zfb)) : zv;
-      zo[i] = zn;
-      so[i] = act ? zn - zv : sp[i];
-    }
+    T* kp = P.keep + lane * kKeep;
+    kp[KP_RN] = ci.rn;
+    kp[KP_NMZ] = ci.nmz;
+    kp[KP_NMV] = ci.nmv;
+    kp[KP_G0] = gam0;
+    kp[KP_G1] = gam1;
+    kp[KP_G2] = gam2;
+    kp[KP_CACHED] = cached ? T(1) : T(0);
+    kp[kKeep - 1] = T(0);
   }
 }
 
-// Pointer order of the host array ``ptrs`` (see ops/spstep.py), 19 pointers
-// a pair in the order of sweep_common.cuh's Block (null for an absent
-// polytope block):
-//   [0, 152)    the 8 input pairs: z, cache, r_prev, s_prev, MR age 1,
-//               MR age 2, MP age 1, MP age 2
-//   [152, 266)  the 6 output pairs: z_new, w, r, s, y, p
-//   [266, 304)  the 2 scratch pairs: fresh sweep, direction
-//   304 x0  305 scalar pack [B, 10]  306 output scalars [B, 16]
-//   [307, 332)  the sweep's constants and scratch, in make_consts's order
-// dims: the kDims entries of sweep_common.cuh, nseg, then nseg (kind, lo,
-// hi) triples.  The wrapper passes uniform costs only (the JAX step
-// kernel's class); the kernel itself reads per-node costs as the sweeps do.
-// coefs: gamma, sigma, c1, sigma_k2, lam, lam_sp.
 template <typename T>
-int launch(const void* ptrs, const int* dims, const double* coefs, int B,
-           void* stream) {
-  if (B < 0) return static_cast<int>(cudaErrorInvalidValue);
-  StepParams<T> P;
-  void* const* p = static_cast<void* const*>(ptrs);
-  constexpr int kPairPtrs = (kInPairs + kOutPairs + 2) * kPairBlocks;
-  if (!make_consts(P.k, p + kPairPtrs + 3, dims, coefs[0], coefs[1])) {
-    return static_cast<int>(cudaErrorInvalidValue);
+__global__ void __launch_bounds__(kThreads)
+sp_retrial_kernel(const __grid_constant__ RetrialParams<T> P) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  __shared__ Lane<T> lz, ld, lzb, lw, lzn, ls;
+  __shared__ T choice[3];
+  const Geo& g = P.x.k.g;
+  const int64_t slot = blockIdx.x;
+  const int64_t lane = P.lanes[slot];
+  const T* sc = P.scal + lane * kScIn;
+  const T* kp = P.keep + lane * kKeep;
+  const bool cached = kp[KP_CACHED] > T(0);
+  const T tau = sc[SC_TAU];
+  make_lane(lz, P.z, lane, g);
+  make_lane(ld, P.d, lane, g);
+  make_lane(lzb, cached ? P.cache : P.fresh, lane, g);
+  make_lane(lw, P.w, slot, g);
+  make_lane(lzn, P.zn, lane, g);
+  make_lane(ls, P.s, lane, g);
+  stage_consts(P.x, sm);
+  __syncthreads();
+
+  const SweepRed<T> cand = step_sweep<T, true>(
+      P.x, lz, ld, tau, lw, P.gdv + slot * g.n_nl * P.x.s.ldu,
+      P.qg + slot * P.x.s.qsize, P.x0 + lane * g.nx, sm);
+  const CommitIn<T> ci{kp[KP_RN], kp[KP_NMZ], kp[KP_NMV], sc[SC_RSAFE],
+                       sc[SC_QPOW], tau, kp[KP_G0], kp[KP_G1], kp[KP_G2],
+                       true};
+  commit(P, cand, ci, lz, ld, lw, lzb, static_cast<const Lane<T>*>(nullptr),
+         lzn, ls,
+         P.oscal + slot * kScOut, choice);
+}
+
+// The constants of a launch from the host pointers p (make_consts's order),
+// dims and coefs (gamma, sigma, c1, sigma_k2, lam, lam_sp); false on a
+// problem outside the kernel's class or a layout that does not fit.
+template <typename T, class Params>
+bool make_params(Params& P, void* const* p, const int* dims,
+                 const double* coefs) {
+  if (!make_consts(P.x.k, p, dims, coefs[0], coefs[1])) return false;
+  const Geo& g = P.x.k.g;
+  if (dims[DIM_PN_Q] || dims[DIM_PN_R] || dims[DIM_PN_QN]) return false;
+  if (g.nx > kMaxDim || g.nu > kMaxDim || g.nc > kMaxDim ||
+      g.ncL > kMaxDim) {
+    return false;
   }
-  Pair<T>* pairs[] = {&P.z,  &P.cache, &P.rp, &P.sp, &P.a1r, &P.a2r,
-                      &P.a1p, &P.a2p,  &P.zn, &P.w,  &P.r,   &P.s,
-                      &P.y,  &P.p,     &P.fresh, &P.d};
-  for (int k = 0; k < kInPairs + kOutPairs + 2; ++k) {
-    for (int b = 0; b < kPairBlocks; ++b) {
-      pairs[k]->p[b] = static_cast<T*>(p[k * kPairBlocks + b]);
-    }
+  if (!plan_smem(P.x.s, g, P.x.k.sker == 0, static_cast<int>(sizeof(T)))) {
+    return false;
   }
-  P.x0 = static_cast<const T*>(p[kPairPtrs]);
-  P.scal = static_cast<const T*>(p[kPairPtrs + 1]);
-  P.oscal = static_cast<T*>(p[kPairPtrs + 2]);
   P.c1 = static_cast<T>(coefs[2]);
   P.sigma_k2 = static_cast<T>(coefs[3]);
   P.lam = static_cast<T>(coefs[4]);
   P.lam_sp = static_cast<T>(coefs[5]);
-  if (B == 0) return 0;
-  sp_step_kernel<T><<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(P);
+  return true;
+}
+
+template <typename T>
+void set_pairs(Pair<T>* const* pairs, int count, void* const* p) {
+  for (int k = 0; k < count; ++k) {
+    for (int b = 0; b < kPairBlocks; ++b) {
+      pairs[k]->p[b] = static_cast<T*>(p[k * kPairBlocks + b]);
+    }
+  }
+}
+
+// Launches ``kernel`` on ``grid`` blocks with the planned dynamic shared
+// memory.  Every launch lifts the kernel's limit above 48 KB: the attribute
+// belongs to the current device, and the call is cheap.
+template <class K, class Params>
+int launch_kernel(K kernel, const Params& P, int grid, void* stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (grid == 0) return 0;
+  kernel<<<grid, kThreads, P.x.s.bytes, static_cast<cudaStream_t>(stream)>>>(
+      P);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Pointer order of the host array ``ptrs`` of sp_step (see ops/spstep.py),
+// 19 pointers a pair in the order of sweep_common.cuh's Block (null for an
+// absent polytope block):
+//   [0, 152)    the 8 input pairs: z, cache, r_prev, s_prev, MR age 1,
+//               MR age 2, MP age 1, MP age 2
+//   [152, 266)  the 6 output pairs: z_new, w, r, s, y, p
+//   [266, 304)  the 2 kept pairs: fresh sweep, direction
+//   304 x0  305 scalar pack [B, 10]  306 output scalars [B, 16]
+//   307 kept scalars [B, 8]  308 dvec scratch  309 costate scratch
+//   [310, 335)  the sweep's constants, in make_consts's order (its four
+//               scratch pointers unused)
+constexpr int kStepPairs = kInPairs + kOutPairs + 2;
+
+template <typename T>
+int launch_step(const void* ptrs, const int* dims, const double* coefs,
+                int B, void* stream) {
+  if (B < 0) return static_cast<int>(cudaErrorInvalidValue);
+  StepParams<T> P;
+  void* const* p = static_cast<void* const*>(ptrs);
+  constexpr int base = kStepPairs * kPairBlocks;
+  if (!make_params<T>(P, p + base + 6, dims, coefs)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Pair<T>* const pairs[] = {&P.z,  &P.cache, &P.rp, &P.sp, &P.a1r, &P.a2r,
+                            &P.a1p, &P.a2p,  &P.zn, &P.w,  &P.r,   &P.s,
+                            &P.y,  &P.p,     &P.fresh, &P.d};
+  set_pairs(pairs, kStepPairs, p);
+  P.x0 = static_cast<const T*>(p[base]);
+  P.scal = static_cast<const T*>(p[base + 1]);
+  P.oscal = static_cast<T*>(p[base + 2]);
+  P.keep = static_cast<T*>(p[base + 3]);
+  P.gdv = static_cast<T*>(p[base + 4]);
+  P.qg = static_cast<T*>(p[base + 5]);
+  return launch_kernel(sp_step_kernel<T>, P, B, stream);
+}
+
+// Pointer order of sp_retrial:
+//   [0, 76)     the 4 input pairs: z, cache, fresh sweep, direction
+//   [76, 114)   z_new and s, written at the listed lanes
+//   [114, 133)  the candidate-sweep scratch pair, [k, ...]
+//   133 lanes [k] (int64)  134 x0  135 scalar pack [B, 10]
+//   136 kept scalars [B, 8]  137 output scalars [k, 16]
+//   138 dvec scratch [k, ...]  139 costate scratch [k, ...]
+//   [140, 165)  the sweep's constants, as for sp_step
+constexpr int kRetrialPairs = 7;
+
+template <typename T>
+int launch_retrial(const void* ptrs, const int* dims, const double* coefs,
+                   int k, void* stream) {
+  if (k < 0) return static_cast<int>(cudaErrorInvalidValue);
+  RetrialParams<T> P;
+  void* const* p = static_cast<void* const*>(ptrs);
+  constexpr int base = kRetrialPairs * kPairBlocks;
+  if (!make_params<T>(P, p + base + 7, dims, coefs)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Pair<T>* const pairs[] = {&P.z, &P.cache, &P.fresh, &P.d,
+                            &P.zn, &P.s, &P.w};
+  set_pairs(pairs, kRetrialPairs, p);
+  P.lanes = static_cast<const int64_t*>(p[base]);
+  P.x0 = static_cast<const T*>(p[base + 1]);
+  P.scal = static_cast<const T*>(p[base + 2]);
+  P.keep = static_cast<const T*>(p[base + 3]);
+  P.oscal = static_cast<T*>(p[base + 4]);
+  P.gdv = static_cast<T*>(p[base + 5]);
+  P.qg = static_cast<T*>(p[base + 6]);
+  return launch_kernel(sp_retrial_kernel<T>, P, k, stream);
+}
+
+// The shared-memory plan of a launch: {bytes, costates in shared memory,
+// Riccati groups, costate scratch values per lane}; -1 entries when the
+// problem is outside the class.
+template <typename T>
+int plan(const int* dims, int* out) {
+  SweepConsts<T> k;
+  void* none[kLMatPtrs + 18] = {};
+  StepSmem s;
+  if (!make_consts(k, none, dims, 1.0, 1.0) ||
+      !plan_smem(s, k.g, dims[DIM_PN_RISK] == 0,
+                 static_cast<int>(sizeof(T)))) {
+    out[0] = out[1] = out[2] = out[3] = -1;
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  out[0] = s.bytes;
+  out[1] = s.q_shared;
+  out[2] = s.cmax;
+  out[3] = s.qsize;
+  return 0;
 }
 
 }  // namespace
 }  // namespace spock
 
-// C entry points, bound with ctypes.  ptrs: host array of the 332 device
-// pointers in the order above; dims: host int array; coefs: host double
-// array.  One thread block per lane.  Returns cudaGetLastError().
+// C entry points, bound with ctypes.  ptrs: host array of device pointers
+// in the orders above; dims: host int array (sweep_common.cuh's Dim entries,
+// nseg, then nseg (kind, lo, hi) triples); coefs: host double array (gamma,
+// sigma, c1, sigma_k2, lam, lam_sp).  One thread block per lane (per listed
+// lane for the retrial).  Return cudaGetLastError().
 extern "C" int sp_step_f32(const void* ptrs, const int* dims,
                            const double* coefs, int B, void* stream) {
-  return spock::launch<float>(ptrs, dims, coefs, B, stream);
+  return spock::launch_step<float>(ptrs, dims, coefs, B, stream);
 }
 
 extern "C" int sp_step_f64(const void* ptrs, const int* dims,
                            const double* coefs, int B, void* stream) {
-  return spock::launch<double>(ptrs, dims, coefs, B, stream);
+  return spock::launch_step<double>(ptrs, dims, coefs, B, stream);
+}
+
+extern "C" int sp_retrial_f32(const void* ptrs, const int* dims,
+                              const double* coefs, int k, void* stream) {
+  return spock::launch_retrial<float>(ptrs, dims, coefs, k, stream);
+}
+
+extern "C" int sp_retrial_f64(const void* ptrs, const int* dims,
+                              const double* coefs, int k, void* stream) {
+  return spock::launch_retrial<double>(ptrs, dims, coefs, k, stream);
+}
+
+// The shared-memory plan (see plan above) into out[4], for chip_smoke.py's
+// report: dsize is 4 or 8.
+extern "C" int sp_step_plan(const int* dims, int dsize, int* out) {
+  return dsize == 8 ? spock::plan<double>(dims, out)
+                    : spock::plan<float>(dims, out);
 }

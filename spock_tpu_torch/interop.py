@@ -4,7 +4,9 @@ The JAX side hands its ``ProblemData`` over as numpy leaves, e.g.
 ``jax.tree_util.tree_map(np.asarray, data)``; any object with the same
 attribute names works, and ``ric`` may be an object with the Riccati field
 names or a tuple of the five per-stage tuples (P, K, Rtinv, ABK, PB).  This
-module reads attributes only; it imports nothing of the JAX package.
+module reads attributes only; it imports nothing of the JAX package.  Like
+``build``, every function here puts its tensors on the card unless given a
+``device`` (``device="cpu"`` for the CPU).
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from .problem import RICCATI_FIELDS, ProblemData, ProblemMeta, RiccatiData
+from .problem import (
+    RICCATI_FIELDS, ProblemData, ProblemMeta, RiccatiData, resolve_device)
 from .tree import UniformTree
 from .zv import Dual, Primal
 
@@ -36,8 +39,9 @@ def meta_from(m) -> ProblemMeta:
 
 
 def problem_data_from_numpy(arrays, meta: ProblemMeta, dtype=torch.float64,
-                            device="cpu") -> ProblemData:
+                            device=None) -> ProblemData:
     """ProblemData from numpy arrays with the JAX ``ProblemData`` layout."""
+    device = resolve_device(device)
     ric = arrays.ric
     if isinstance(ric, tuple):
         parts = dict(zip(RICCATI_FIELDS, ric))
@@ -57,13 +61,15 @@ def problem_data_from_numpy(arrays, meta: ProblemMeta, dtype=torch.float64,
     return ProblemData(**fields)
 
 
-def primal_from_numpy(z, dtype=torch.float64, device="cpu") -> Primal:
+def primal_from_numpy(z, dtype=torch.float64, device=None) -> Primal:
     """Primal from any object with fields x, u, s, tau, y (numpy leaves)."""
+    device = resolve_device(device)
     return Primal(**{fl.name: _tensor(getattr(z, fl.name), dtype, device)
                      for fl in dataclasses.fields(Primal)})
 
 
-def dual_from_numpy(v, dtype=torch.float64, device="cpu") -> Dual:
+def dual_from_numpy(v, dtype=torch.float64, device=None) -> Dual:
     """Dual from any object with the Dual field names (numpy leaves)."""
+    device = resolve_device(device)
     return Dual(**{fl.name: _tensor(getattr(v, fl.name, None), dtype, device)
                    for fl in dataclasses.fields(Dual)})

@@ -46,13 +46,15 @@ def _target(src: Path) -> Path:
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build_all() -> None:
-    """Compile every source without an up-to-date library, one ``nvcc`` per
-    source, all started together."""
+def build_all(names=None) -> None:
+    """Compile every source (or those named in ``names``) without an
+    up-to-date library, one ``nvcc`` per source, all started together."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
     jobs = []
     for src in sorted(CSRC.glob("*.cu")):
+        if names is not None and src.stem not in names:
+            continue
         out = _target(src)
         if out.exists():
             continue

@@ -19,13 +19,13 @@ import pytest
 import torch
 
 import spock_tpu_torch
-from spock_tpu_torch import build, mpc, problem, risks
+from spock_tpu_torch import build, interop, mpc, problem, risks
 from spock_tpu_torch.models import server_heat
 from spock_tpu_torch.algorithms import common
 from spock_tpu_torch.ops import (
     _build, cuda_kernels, linop, prox, spstep, sweep_kernels)
-from spock_tpu_torch.solver import Solver
-from spock_tpu_torch.zv import DUAL_BLOCKS, Dual, leaves
+from spock_tpu_torch.solver import Solver, zero_primal
+from spock_tpu_torch.zv import DUAL_BLOCKS, Dual, leaves, tmap
 
 torch.set_num_threads(1)
 
@@ -84,7 +84,8 @@ def cpu_problem():
                  device="cpu")
 
 
-@pytest.mark.parametrize("entry", ["build", "Solver", "simulate_async"])
+@pytest.mark.parametrize("entry", ["build", "Solver", "simulate_async",
+                                   "interop"])
 def test_entry_points_default_to_the_card(no_cuda, cpu_problem, entry):
     """Without a device argument and without a card, every entry point
     raises instead of carrying on on the CPU."""
@@ -94,6 +95,9 @@ def test_entry_points_default_to_the_card(no_cuda, cpu_problem, entry):
             build(server_heat.make_spec(N=3, nx=3, d=2))
         elif entry == "Solver":
             Solver(data, meta)
+        elif entry == "interop":
+            interop.primal_from_numpy(zero_primal(meta, (1,), torch.float64,
+                                                  "cpu"))
         else:
             mpc.simulate_async(data, meta, np.zeros((1, 3)),
                                np.zeros((1, 1), int), 1e-3, n_steps=1)
@@ -165,6 +169,35 @@ def test_step_wrapper_never_falls_back(cpu_problem):
     assert spstep.LAUNCHES == before
 
 
+def _meta_keep(meta, B):
+    return spstep.StepKeep(
+        cache=_meta_pair(meta, B, torch.float64),
+        fresh=_meta_pair(meta, B, torch.float64),
+        d=_meta_pair(meta, B, torch.float64),
+        scal=torch.empty((B, spstep.N_KEEP), dtype=torch.float64,
+                         device="meta"))
+
+
+def _retrial(data, meta):
+    z, v = _meta_pair(meta, 2, torch.float64)
+    x0 = torch.empty((2, meta.nx), dtype=torch.float64, device="meta")
+    scal = torch.empty((2, spstep.N_SC), dtype=torch.float64, device="meta")
+    lanes = torch.empty((1,), dtype=torch.int64, device="meta")
+    return spstep.sp_step_retrial(
+        data, meta, z, v, _meta_keep(meta, 2), x0, scal, lanes,
+        _meta_pair(meta, 2, torch.float64), _meta_pair(meta, 2, torch.float64),
+        0.2, 0.3, c1=0.99, sigma_k2=0.1, lam=1.0, lam_sp=1.0)
+
+
+def test_retrial_wrapper_never_falls_back(cpu_problem):
+    """Tensors that are not on the CPU go to the retrial kernel or raise."""
+    data, meta = cpu_problem
+    before = dict(spstep.LAUNCHES)
+    with pytest.raises(ValueError, match="sp_step_retrial kernel"):
+        _retrial(data, meta)
+    assert spstep.LAUNCHES == before
+
+
 def _per_node_costs(data, meta):
     t = meta.tree
 
@@ -191,6 +224,42 @@ def test_step_wrapper_raises_on_per_node_costs(cpu_problem):
     with pytest.raises(ValueError, match="sp_step_fused kernel: unsupported"):
         spstep.sp_step_fused(data, meta, *pairs[0], *pairs[1:], x0, scal, 0.2,
                              0.3, c1=0.99, sigma_k2=0.1, lam=1.0, lam_sp=1.0)
+    assert spstep.LAUNCHES == before
+
+
+def test_step_class_ends_at_32_states():
+    """The step kernels hold a node's column in registers: nx, nu and the
+    polytope rows of a node are at most 32.  Wider problems are in the sweep
+    kernels' class but not in the step kernels', so the SuperMann iteration
+    takes the per-sweep kernels, and a step call on tensors that are not on
+    the CPU raises."""
+    from spock_tpu_torch.algorithms import supermann as sp
+
+    for nx, inside in ((32, True), (33, False)):
+        data, meta = build(server_heat.make_spec(N=2, nx=nx, d=2),
+                           dtype=torch.float64, device="cpu")
+        assert sweep_kernels.supported(meta, data)
+        assert spstep.supported(meta, data) == inside
+        assert sp.use_fused_step(data, meta, sp.SuperMannOpts()) == inside
+    pairs = [_meta_pair(meta, 2, torch.float64) for _ in range(8)]
+    x0 = torch.empty((2, meta.nx), dtype=torch.float64, device="meta")
+    scal = torch.empty((2, spstep.N_SC), dtype=torch.float64, device="meta")
+    before = dict(spstep.LAUNCHES)
+    with pytest.raises(ValueError, match="sp_step_fused kernel: unsupported"):
+        spstep.sp_step_fused(data, meta, *pairs[0], *pairs[1:], x0, scal, 0.2,
+                             0.3, c1=0.99, sigma_k2=0.1, lam=1.0, lam_sp=1.0)
+    assert spstep.LAUNCHES == before
+
+
+def test_retrial_wrapper_raises_on_per_node_costs(cpu_problem):
+    """The retrial kernel has the step kernel's class: with per-node costs
+    a call on tensors that are not on the CPU raises."""
+    data, meta = cpu_problem
+    data = _per_node_costs(data, meta)
+    before = dict(spstep.LAUNCHES)
+    with pytest.raises(ValueError,
+                       match="sp_step_retrial kernel: unsupported"):
+        _retrial(data, meta)
     assert spstep.LAUNCHES == before
 
 
@@ -376,72 +445,139 @@ def _sweep_check(spec, name, dtype):
             assert err <= 1e-5 * (1 + float(r.abs().max())), i
 
 
-def _step_case(meta, dtype, B=4):
+def _step_case(meta, dtype, device, B=4):
     """Eight random pairs, x0 and a scalar pack with a mix of active, cached,
     first-iteration and retrial lanes."""
     rng = np.random.default_rng(1)
 
     def pair():
         return sweep_kernels.new_pair(meta, B, lambda s: torch.tensor(
-            rng.standard_normal(s), dtype=dtype, device="cuda"))
+            rng.standard_normal(s), dtype=dtype, device=device))
 
     pairs = [pair() for _ in range(8)]
     x0 = torch.tensor(rng.uniform(-0.5, 0.5, (B, meta.nx)), dtype=dtype,
-                      device="cuda")
+                      device=device)
     scal = torch.tensor([[1, 0, 0, 0, np.inf, 1.0, 0, 0, 0, 1.0],
                          [1, 1, 1, 1, 1e3, 0.9, 1e3, 0.5, 0.7, 1.0],
                          [0, 1, 1, 1, 5.0, 0.8, 3.0, 0.5, 0.7, 1.0],
                          [1, 1, 0, 0, 40.0, 0.7, 0, 0, 0, 0.25]],
-                        dtype=dtype, device="cuda")
+                        dtype=dtype, device=device)
     return pairs, x0, scal
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_step_kernel_matches_plain_version_on_the_card(dtype):
-    """The SuperMann step kernel against sp_step_ref at a small size.
-    float64: every output within 1e-9 (1 + max|plain|).  float32: the K1 /
-    K2 / loop decisions of each lane, and on the lanes whose decisions agree
-    every output within 1e-4 (1 + max|plain|): two sweeps, the Gram sums and
-    the 3x3 solve in another order than PyTorch's, and a decision near its
+    """The SuperMann step kernel against sp_step_ref at a small size, its
+    kept direction and scalars included, then the retrial kernel on a
+    strict subset of the lanes against sp_retrial_ref.  float64: every
+    output within 1e-9 (1 + max|plain|).  float32: the K1 / K2 / loop
+    decisions of each lane, and on the lanes whose decisions agree every
+    output within 1e-4 (1 + max|plain|): two sweeps, the Gram sums and the
+    3x3 solve in another order than PyTorch's, and a decision near its
     threshold may flip in float32."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    _step_check(server_heat.make_spec(N=4, nx=5, d=2), dtype)
+    _step_check(*build(server_heat.make_spec(N=4, nx=5, d=2), dtype=dtype),
+                dtype)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_widened_step_kernel_matches_plain_version_on_the_card(dtype):
-    """The step kernel against sp_step_ref on per-node risk and polytope
-    rows (its class has uniform costs), with the tolerances of the uniform
-    test above."""
+    """The step and retrial kernels against their plain versions on
+    per-node risk and polytope rows (their class has uniform costs), with
+    the tolerances of the uniform test above."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    _step_check(_wide_spec(per_node_costs=False), dtype)
+    _step_check(*build(_wide_spec(per_node_costs=False), dtype=dtype), dtype)
 
 
-def _step_check(spec, dtype):
-    data, meta = build(spec, dtype=dtype)
-    assert spstep.supported(meta, data)
-    pairs, x0, scal = _step_case(meta, dtype)
-    args = (data, meta, *pairs[0], *pairs[1:], x0, scal, 0.21, 0.37)
-    knobs = dict(c1=0.99, sigma_k2=0.1, lam=1.0, lam_sp=1.0)
-    before = spstep.LAUNCHES["sp_step_fused"]
-    got = spstep.sp_step_fused(*args, **knobs)
-    torch.cuda.synchronize()
-    assert spstep.LAUNCHES["sp_step_fused"] == before + 1
-    ref = spstep.sp_step_ref(*args, **knobs)
-    agree = (got[6][:, :3] == ref[6][:, :3]).all(dim=1)
+@pytest.mark.cuda
+def test_step_kernels_with_costates_in_device_memory_on_the_card():
+    """server_heat N=11 nx=20 d=2 in float64: a lane's Riccati costates
+    (245,760 bytes) do not fit in a block's shared memory, so the step
+    kernels keep them in device memory; both entries against their plain
+    versions, with the float64 tolerance of the uniform test above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    data, meta = build(server_heat.make_spec(N=11, nx=20, d=2),
+                       dtype=torch.float64)
+    plan = spstep.smem_plan(data, meta, torch.float64)
+    assert not plan["costates_in_shared_memory"]
+    _step_check(data, meta, torch.float64)
+
+
+@pytest.mark.cuda
+def test_step_kernels_launch_on_a_second_card():
+    """The step kernels launch on the first card, then on the second: their
+    blocks take more than the default 48 KB of shared memory, a limit that
+    each device lifts on its own.  server_heat N=8 nx=20 d=2 in float64
+    (costates of 61,440 bytes in shared memory)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    spec = server_heat.make_spec(N=8, nx=20, d=2)
+    for device in ("cuda:0", "cuda:1"):
+        data, meta = build(spec, dtype=torch.float64, device=device)
+        assert spstep.smem_plan(data, meta, torch.float64)["bytes"] > 48 * 1024
+        _step_check(data, meta, torch.float64, device)
+
+
+def _hold(got, ref, dtype, lanes=None):
+    """Each output leaf within 1e-9 (1 + max|plain|) in float64; in float32
+    the K1 / K2 / loop decisions of at least all but one lane, and 1e-4
+    (1 + max|plain|) on the lanes whose decisions agree.  ``got`` and
+    ``ref`` end with the output scalars, of every lane or, with ``lanes``,
+    of those lanes (the pairs have every lane)."""
+    agree = (got[-1][:, :3] == ref[-1][:, :3]).all(dim=1)
     if dtype == torch.float64:
         assert bool(agree.all())
     else:
-        assert int(agree.sum()) >= 3
+        assert int(agree.sum()) >= agree.numel() - 1
+    rows = agree
+    if lanes is not None:
+        rows = torch.ones(leaves(got[0])[0].shape[0], dtype=torch.bool,
+                          device=agree.device)
+        rows[lanes[~agree]] = False
+    pairs = [(g[rows], r[rows])
+             for g, r in zip(leaves(got[:-1]), leaves(ref[:-1]))]
     rtol = 1e-9 if dtype == torch.float64 else 1e-4
-    for i, (g, r) in enumerate(zip(leaves(got), leaves(ref))):
-        g, r = g[agree], r[agree]
+    for i, (g, r) in enumerate(pairs + [(got[-1][agree], ref[-1][agree])]):
         # r_safe stays inf on a lane that never took K1: equal values agree
         err = torch.where(g == r, 0.0, (g - r).abs())
         assert not bool(err.isnan().any()), i
         scale = float(r[torch.isfinite(r)].abs().max())
         assert float(err.max()) <= rtol * (1 + scale), i
+
+
+def _step_check(data, meta, dtype, device="cuda"):
+    assert spstep.supported(meta, data)
+    pairs, x0, scal = _step_case(meta, dtype, device)
+    args = (data, meta, *pairs[0], *pairs[1:], x0, scal, 0.21, 0.37)
+    knobs = dict(c1=0.99, sigma_k2=0.1, lam=1.0, lam_sp=1.0)
+    before = dict(spstep.LAUNCHES)
+    got = spstep.sp_step_fused(*args, **knobs)
+    torch.cuda.synchronize(device)
+    assert spstep.LAUNCHES["sp_step_fused"] == before["sp_step_fused"] + 1
+    ref = spstep.sp_step_ref(*args, **knobs)
+    # the six pairs, the kept direction and scalars, the output scalars
+    _hold((*got[:6], got[7].d, got[7].scal, got[6]),
+          (*ref[:6], ref[7].d, ref[7].scal, ref[6]), dtype)
+
+    # a retrial of a strict subset of the active lanes (3 and 0) at new
+    # taus, on the kept zbar and d: in place into z_new and s at those lanes
+    lanes = torch.tensor([3, 0], device=device)
+    scal2 = scal.clone()
+    scal2[:, spstep.SC_TAU] = torch.tensor([0.5, 0.5, 0.5, 0.125],
+                                           dtype=dtype, device=device)
+    z_new, s = got[0], got[3]
+    z_plain, s_plain = tmap(torch.clone, z_new), tmap(torch.clone, s)
+    out = spstep.sp_step_retrial(data, meta, *pairs[0], got[7], x0, scal2,
+                                 lanes, z_new, s, 0.21, 0.37, **knobs)
+    torch.cuda.synchronize(device)
+    assert spstep.LAUNCHES["sp_step_retrial"] == before["sp_step_retrial"] + 1
+    out_ref = spstep.sp_retrial_ref(data, meta, *pairs[0], got[7], x0, scal2,
+                                    lanes, z_plain, s_plain, 0.21, 0.37,
+                                    **knobs)
+    # every lane, the untouched ones included
+    _hold((z_new, s, out), (z_plain, s_plain, out_ref), dtype, lanes)

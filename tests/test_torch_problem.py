@@ -107,14 +107,14 @@ def test_risks_match_jax():
 def test_interop_round_trip_is_exact(both):
     jdata, jmeta, _, pmeta = both
     arrays = jax.tree_util.tree_map(np.asarray, jdata)
-    pdata = interop.problem_data_from_numpy(arrays, pmeta)
+    pdata = interop.problem_data_from_numpy(arrays, pmeta, device="cpu")
     assert_close(pdata, jdata, atol=0.0)
     # ric handed over as nested tuples instead of a dataclass
     ric_tuples = tuple(getattr(arrays.ric, f) for f in RICCATI_FIELDS)
     pdata2 = interop.problem_data_from_numpy(
-        dataclasses.replace(arrays, ric=ric_tuples), pmeta)
+        dataclasses.replace(arrays, ric=ric_tuples), pmeta, device="cpu")
     assert_close(pdata2.ric, jdata.ric, atol=0.0)
     z, v = rand_pair(np.random.default_rng(0), jmeta, batch=(2,))
-    assert_close(interop.primal_from_numpy(z), z, atol=0.0)
-    assert_close(interop.dual_from_numpy(v), v, atol=0.0)
+    assert_close(interop.primal_from_numpy(z, device="cpu"), z, atol=0.0)
+    assert_close(interop.dual_from_numpy(v, device="cpu"), v, atol=0.0)
     assert pdata.dtype == torch.float64 and pdata.device.type == "cpu"

@@ -15,9 +15,14 @@ from spock_tpu import build as jbuild
 from spock_tpu.models import server_heat as jsh
 from spock_tpu.ops import pallas_spstep, pallas_spstep_lt
 from spock_tpu.solver import Solver as JSolver
+from spock_tpu import zv as jzv
+from spock_tpu_torch import mpc
 from spock_tpu_torch.algorithms import supermann as sp
+from spock_tpu_torch.algorithms.common import bwhere, check_termination
 from spock_tpu_torch.ops import spstep
+from spock_tpu_torch.problem import step_size
 from spock_tpu_torch.solver import Solver, zero_dual, zero_primal
+from spock_tpu_torch.zv import tmap
 from tests.torch_parity import (
     assert_close, jax_problem, port_data, rand_pair, to_jax, to_port)
 
@@ -180,27 +185,36 @@ def test_fused_iterations_match_composed_body(server_heat_n4, n_it):
 
 
 def test_retrial_path_matches_composed_backtracking(monkeypatch):
-    """Backtracking by relaunching the step at the shrunken per-lane tau
-    against sp_body's geometric backtracking, on car N=3 with acceptance
-    rigged so every lane backtracks to the CP fallback: c1 ~ 0 kills K1 and
-    sigma_k2 huge kills K2."""
+    """Backtracking by retrial launches at the shrunken per-lane tau against
+    sp_body's geometric backtracking, on car N=3 with acceptance rigged so
+    every lane backtracks to the CP fallback: c1 ~ 0 kills K1 and sigma_k2
+    huge kills K2.  Each iteration is one tau = 1 step and one retrial per
+    backtrack, on every looping lane."""
     _, jdata, jmeta = jax_problem("car")
     pdata, pmeta = port_data(jdata, jmeta)
     rng = np.random.default_rng(23)
     x0 = torch.tensor(rng.uniform(-0.3, 0.3, (2, pmeta.nx)))
     opts = sp.SuperMannOpts(c1=1e-9, sigma_k2=1e9, max_backtracks=3)
     calls = []
-    plain = spstep.sp_step_ref
+    step, retrial = spstep.sp_step_ref, spstep.sp_retrial_ref
 
-    def counted(*args, **kwargs):
-        calls.append(args[12][:, spstep.SC_TAU].tolist())
-        return plain(*args, **kwargs)
+    def counted_step(*args, **kwargs):
+        calls.append(("step", args[12][:, spstep.SC_TAU].tolist()))
+        return step(*args, **kwargs)
 
-    monkeypatch.setattr(spstep, "sp_step_ref", counted)
+    def counted_retrial(*args, **kwargs):
+        scal, lanes = args[6], args[7]
+        calls.append(("retrial", scal[lanes, spstep.SC_TAU].tolist()))
+        return retrial(*args, **kwargs)
+
+    monkeypatch.setattr(spstep, "sp_step_ref", counted_step)
+    monkeypatch.setattr(spstep, "sp_retrial_ref", counted_retrial)
     n_it = 2
     cf = _iterate(pdata, pmeta, x0, opts, n_it, fused=True)
     # each iteration: the tau = 1 launch, then retrials at 0.5, 0.25, 0.125
-    assert [t[0] for t in calls] == [1.0, 0.5, 0.25, 0.125] * n_it
+    assert calls == [("step", [1.0, 1.0]), ("retrial", [0.5, 0.5]),
+                     ("retrial", [0.25, 0.25]),
+                     ("retrial", [0.125, 0.125])] * n_it
     c = _iterate(pdata, pmeta, x0, opts, n_it, fused=False)
     _compare_iterates(cf, c)
 
@@ -225,3 +239,204 @@ def test_fused_solve_matches_jax_solver(problem):
     it_f = got.iterations.numpy().astype(float)
     it_c = composed.iterations.numpy().astype(float)
     assert np.all(np.abs(it_f - it_c) <= 0.05 * it_c + 3)
+
+
+# ---------------------------------------------------------------------------
+# Retrials: candidate phase and commit on the kept zbar and d
+# ---------------------------------------------------------------------------
+
+
+def looping_carry(pdata, pmeta, B_=B, seed=3, max_it=10):
+    """The first fused carry from zero whose tau = 1 step leaves lanes
+    looping: (carry, its tau = 1 step arguments, the plain step's outputs
+    with the keep, the looping lanes)."""
+    rng = np.random.default_rng(seed)
+    x0 = torch.tensor(rng.uniform(-0.5, 0.5, (B_, pmeta.nx)))
+    opts = sp.SuperMannOpts()
+    c = sp.sp_init_fused(pmeta, x0, zero_primal(pmeta, (B_,), torch.float64,
+                                                "cpu"),
+                         zero_dual(pmeta, (B_,), torch.float64, "cpu"), opts)
+    g = step_size(pdata)
+    for _ in range(max_it):
+        ph = c.it % 3
+        args = sp.step_inputs(c, opts, ph, ~c.done, c.cache_valid, c.r_safe,
+                              torch.ones(B_, dtype=torch.float64))
+        out = spstep.sp_step_ref(pdata, pmeta, *args, g, g, **KNOBS)
+        lanes = torch.nonzero(out[6][:, spstep.OC_LOOP] > 0.5).flatten()
+        if lanes.numel():
+            return c, args, out, lanes
+        c = sp.sp_body_fused(pdata, pmeta, 1e-12, opts, phase=ph)(c)
+    raise AssertionError("no lane looped")
+
+
+def retrial_vs_step(pdata, pmeta, args, out, lanes, tau):
+    """The retrial of ``lanes`` at ``tau`` on the kept zbar and d against
+    sp_step_ref with no cache at tau: z_new and s on those lanes, output
+    slots 0-12 (decisions exactly).  Returns the no-cache scalar pack."""
+    g = step_size(pdata)
+    scal = args[-1].clone()
+    scal[:, spstep.SC_TAU] = tau
+    z_new, s = tmap(torch.clone, out[0]), tmap(torch.clone, out[3])
+    before = dict(spstep.LAUNCHES)
+    sc = spstep.sp_step_retrial(pdata, pmeta, args[0], args[1], out[7],
+                                args[9], scal, lanes, z_new, s, g, g,
+                                **KNOBS)
+    assert spstep.LAUNCHES == before  # CPU tensors: no launch
+    scal_nc = scal.clone()
+    scal_nc[:, spstep.SC_CACHE] = 0
+    ref = spstep.sp_step_ref(pdata, pmeta, *args[:-1], scal_nc, g, g,
+                             **KNOBS)
+    for got_p, ref_p in ((z_new, ref[0]), (s, ref[3])):
+        for a, b in zip(leaves_of(got_p), leaves_of(ref_p)):
+            np.testing.assert_allclose(a[lanes].numpy(), b[lanes].numpy(),
+                                       rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(sc[:, :3].numpy(),
+                                  ref[6][lanes, :3].numpy())
+    np.testing.assert_allclose(sc[:, :13].numpy(),
+                               ref[6][lanes, :13].numpy(), rtol=RTOL,
+                               atol=ATOL)
+    return scal_nc, sc
+
+
+def leaves_of(pair):
+    from spock_tpu_torch.zv import leaves
+    return leaves(pair)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_retrial_matches_step_without_cache(problem, k):
+    """On the looping lanes of a real fused carry, the retrial at tau =
+    beta^k (sp_retrial_ref: the candidate sweep and the commit on the kept
+    zbar and d) equals sp_step_ref with no cache at that tau."""
+    _, _, pdata, pmeta = problem
+    _, args, out, lanes = looping_carry(pdata, pmeta)
+    retrial_vs_step(pdata, pmeta, args, out, lanes, 0.5 ** k)
+
+
+def _jax_pair(pair):
+    z, v = pair
+    return (jzv.Primal(**{f: jnp.asarray(getattr(z, f).numpy())
+                          for f in z.__dataclass_fields__}),
+            jzv.Dual(**{f: jnp.asarray(getattr(v, f).numpy())
+                        for f in v.__dataclass_fields__
+                        if getattr(v, f) is not None}))
+
+
+def test_retrial_matches_jax_kernel(problem):
+    """The same retrials against pallas_spstep.sp_step_fused with the
+    retrial pack (no cache, tau = beta^k), on the looping lanes."""
+    jdata, jmeta, pdata, pmeta = problem
+    _, args, out, lanes = looping_carry(pdata, pmeta)
+    g = step_size(pdata)
+    trios = [pallas_spstep.pack_pair(jmeta, *_jax_pair(q))
+             for q in [args[:2]] + list(args[2:9])]
+    for k in (1, 2, 3):
+        scal_nc, sc = retrial_vs_step(pdata, pmeta, args, out, lanes,
+                                      0.5 ** k)
+        ref = pallas_spstep.sp_step_fused(
+            jdata, jmeta, *trios, jnp.asarray(args[9].numpy()),
+            jnp.asarray(scal_nc.numpy()), g, g, **KNOBS, interpret=True)
+        rows = lanes.numpy()
+        np.testing.assert_array_equal(sc[:, :3].numpy(),
+                                      np.asarray(ref[6])[rows, :3])
+        np.testing.assert_allclose(sc[:, :13].numpy(),
+                                   np.asarray(ref[6])[rows, :13], rtol=RTOL,
+                                   atol=ATOL)
+
+
+def _recompute_body(data, meta, tol, opts, phase, gamma=None, sigma=None):
+    """The fused iteration with backtracking by relaunching the whole step
+    with no cache (phases 1-2 recomputed) for every lane: the retrial path
+    before the retrial entry, kept here as the reference."""
+    if gamma is None or sigma is None:
+        gamma = sigma = step_size(data)
+    m = opts.aa_window
+
+    def body(c):
+        B_ = c.done.shape[0]
+        active = ~c.done
+
+        def step(act, cache, r_safe, tau):
+            return spstep.sp_step_fused(
+                data, meta, *sp.step_inputs(c, opts, phase, act, cache,
+                                            r_safe, tau),
+                gamma, sigma, **KNOBS)
+
+        ones = torch.ones((B_,), dtype=torch.float64)
+        z_new, w, r, s, y, p, sc, _ = step(active, c.cache_valid, c.r_safe,
+                                           ones)
+        k1_first = sc[:, spstep.OC_K1] > 0.5
+        looping = sc[:, spstep.OC_LOOP] > 0.5
+        r_safe = sc[:, spstep.OC_RSAFE]
+        xi1, xi2 = sc[:, spstep.OC_XI1], sc[:, spstep.OC_XI2]
+        tau = torch.full((B_,), opts.beta, dtype=torch.float64)
+        no_cache = torch.zeros((B_,), dtype=torch.bool)
+        bt = 1
+        while bt <= opts.max_backtracks and bool(looping.any()):
+            z2, _, _, s2, _, _, sc2, _ = step(looping, no_cache, r_safe,
+                                              tau)
+            acc = looping & ((sc2[:, spstep.OC_K1] > 0.5)
+                             | (sc2[:, spstep.OC_K2] > 0.5))
+            z_new = bwhere(acc, z2, z_new)
+            s = bwhere(acc, s2, s)
+            r_safe = torch.where(acc, sc2[:, spstep.OC_RSAFE], r_safe)
+            xi1 = torch.where(acc, sc2[:, spstep.OC_XI1], xi1)
+            xi2 = torch.where(acc, sc2[:, spstep.OC_XI2], xi2)
+            looping = looping & (sc2[:, spstep.OC_LOOP] > 0.5)
+            tau = torch.where(looping, tau * opts.beta, tau)
+            bt += 1
+        conv, res0 = check_termination(xi1, xi2, c.res0, tol)
+        return sp.SPCarryF(
+            x0=c.x0, z=z_new[0], v=z_new[1], cache=w, r_prev=r, s_prev=s,
+            MR=tuple(y if j == phase else c.MR[j] for j in range(m)),
+            MP=tuple(p if j == phase else c.MP[j] for j in range(m)),
+            r_safe=torch.where(active, r_safe, c.r_safe),
+            res0=torch.where(active[:, None], res0, c.res0),
+            done=c.done | (conv & active),
+            niter=c.niter + active.to(torch.int32),
+            xi1=torch.where(active, xi1, c.xi1),
+            xi2=torch.where(active, xi2, c.xi2),
+            it=c.it + 1, cache_valid=k1_first | c.done | conv,
+            rnorm_c=sc[:, spstep.OC_RT], nMrz_c=sc[:, spstep.OC_NMRWZ],
+            nMrv_c=sc[:, spstep.OC_NMRWV])
+
+    return body
+
+
+def test_farm_retrial_path_matches_recompute_path(problem, monkeypatch):
+    """The warm-started farm on the fused step: retrials on the kept zbar
+    and d for the looping lanes only give the farm of whole-step relaunches
+    with no cache for every lane (plant states, controls, final iterates at
+    1e-10, the same iteration counts)."""
+    _, _, pdata, pmeta = problem
+    rng = np.random.default_rng(7)
+    x0 = rng.uniform(-0.5, 0.5, (3, pmeta.nx))
+    ws = rng.integers(0, 2, size=(4, 3))
+
+    def run():
+        return mpc.simulate_async(pdata, pmeta, x0, ws, 1e-4, n_steps=3,
+                                  device="cpu")
+
+    retrials = []
+    plain = spstep.sp_retrial_ref
+
+    def counted(*args, **kwargs):
+        retrials.append(int(args[7].numel()))
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(spstep, "sp_retrial_ref", counted)
+    before = dict(spstep.LAUNCHES)
+    got = run()
+    assert spstep.LAUNCHES == before
+    assert retrials and min(retrials) >= 1
+    monkeypatch.setattr(sp, "sp_body_fused", _recompute_body)
+    ref = run()
+    assert got.total_iterations == ref.total_iterations
+    np.testing.assert_array_equal(got.iters_per_step.numpy(),
+                                  ref.iters_per_step.numpy())
+    for a, b in ((got.xs, ref.xs), (got.us, ref.us)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-10,
+                                   atol=1e-10)
+    for a, b in zip(leaves_of((got.z, got.v)), leaves_of((ref.z, ref.v))):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-10,
+                                   atol=1e-10)

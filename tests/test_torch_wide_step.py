@@ -15,7 +15,10 @@ from spock_tpu.ops import pallas_spstep, pallas_spstep_lt
 from spock_tpu_torch.algorithms import supermann as sp
 from spock_tpu_torch.ops import spstep
 from spock_tpu_torch.solver import zero_dual, zero_primal
-from tests.test_torch_spstep import GAMMA, KNOBS, PACKS, SIGMA, _compare
+from spock_tpu_torch.problem import step_size
+from tests.test_torch_spstep import (
+    ATOL, GAMMA, KNOBS, PACKS, RTOL, SIGMA, _compare, _jax_pair,
+    looping_carry, retrial_vs_step)
 from tests.torch_parity import SMALL, port_data, rand_pair, to_jax, to_port
 
 torch.set_num_threads(1)
@@ -112,3 +115,37 @@ def test_step_matches_lane_tiled_jax_kernel():
         interpret=True)
     ref_pairs = [pallas_spstep_lt.unpack_pair(jmeta, t) for t in ref[:6]]
     _compare(_port_step(pdata, pmeta, pairs, x0, scal), ref_pairs, ref[6])
+
+
+def test_retrial_matches_step_without_cache_and_jax_kernel(problem):
+    """On the looping lanes of a real fused carry on polytope rows or
+    per-node risk, the retrial at tau = beta^k, k = 1, 2, 3, on the kept
+    zbar and d equals sp_step_ref with no cache at that tau, and the JAX
+    step kernel with the retrial pack (interpret mode)."""
+    _, jdata, jmeta, pdata, pmeta = problem
+    _, args, out, lanes = looping_carry(pdata, pmeta)
+    g = step_size(pdata)
+    trios = [pallas_spstep.pack_pair(jmeta, *_jax_pair(q))
+             for q in [args[:2]] + list(args[2:9])]
+    for k in (1, 2, 3):
+        scal_nc, sc = retrial_vs_step(pdata, pmeta, args, out, lanes,
+                                      0.5 ** k)
+        ref = pallas_spstep.sp_step_fused(
+            jdata, jmeta, *trios, jnp.asarray(args[9].numpy()),
+            jnp.asarray(scal_nc.numpy()), g, g, **KNOBS, interpret=True)
+        rows = lanes.numpy()
+        np.testing.assert_array_equal(sc[:, :3].numpy(),
+                                      np.asarray(ref[6])[rows, :3])
+        np.testing.assert_allclose(sc[:, :13].numpy(),
+                                   np.asarray(ref[6])[rows, :13], rtol=RTOL,
+                                   atol=ATOL)
+
+
+def test_retrial_on_polytope_and_per_node_risk_at_once():
+    """The retrial against sp_step_ref with no cache on polytope rows and
+    per-node risk at once."""
+    jdata, jmeta = jbuild(SMALL["poly_navar"](), dtype=jnp.float64)
+    pdata, pmeta = port_data(jdata, jmeta)
+    _, args, out, lanes = looping_carry(pdata, pmeta)
+    for k in (1, 2, 3):
+        retrial_vs_step(pdata, pmeta, args, out, lanes, 0.5 ** k)

@@ -104,7 +104,7 @@ def port_data(jdata, jmeta):
     """The port's (data, meta) carried across from the JAX build."""
     meta = interop.meta_from(jmeta)
     arrays = jax.tree_util.tree_map(np.asarray, jdata)
-    return interop.problem_data_from_numpy(arrays, meta), meta
+    return interop.problem_data_from_numpy(arrays, meta, device="cpu"), meta
 
 
 def primal_shapes(meta):
@@ -145,9 +145,9 @@ def to_port(tree):
     if isinstance(tree, tuple):
         return tuple(to_port(t) for t in tree)
     if isinstance(tree, jzv.Primal):
-        return interop.primal_from_numpy(tree)
+        return interop.primal_from_numpy(tree, device="cpu")
     if isinstance(tree, jzv.Dual):
-        return interop.dual_from_numpy(tree)
+        return interop.dual_from_numpy(tree, device="cpu")
     return torch.tensor(np.array(tree))
 
 
