@@ -8,15 +8,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
 1. environment: the card's name and power limit (nvidia-smi), the torch and
    CUDA versions, and the TF32 switches, which must be off;
 2. build: every kernel under ``spock_tpu_torch/csrc`` (prox_h_conj,
-   cp_sweep, metric_apply, sp_step) with nvcc for sm_90a, one nvcc per
-   source: the first three together, then sp_step (minutes of ptxas) in a
-   thread while phase 3 and the ``_pncost`` farm of 7d run, waited for
-   just before the step kernels' first use;
+   cp_sweep, metric_apply, sp_step) with nvcc for sm_90a, all started at
+   once in the background (cp_sweep and sp_step, whose sweeps take minutes
+   of ptxas, in four and two parts), each waited for at its
+   first use: the phases that need only prox_h_conj (its row of phase 3,
+   the composed farm of 4c) run during the long builds; nvcc seconds per
+   source, ptxas registers, spills and shared memory, and the node body's
+   shared-memory plans are printed once all are built;
 3. each kernel against its plain PyTorch version at the shapes of the main
    path (B = 128 lanes of server_heat N=10 nx=nu=20 d=2, float32), and both
    timed with CUDA events: prox_h_conj, cp_sweep_fused,
-   cp_sweep_metric_fused, candidate_sweep_fused and metric_apply_fused on
-   random inputs; after 4a, the step kernels of csrc/sp_step.cu (the
+   cp_sweep_metric_fused, candidate_sweep_fused (the three on the node body
+   of csrc/cp_sweep.cu) and metric_apply_fused on random inputs; the
+   element body of csrc/cp_sweep.cu (candidate_sweep_fused) on server_heat
+   N=4 at nx=nu=33, above the node body's 32, driven by a Solver on the
+   sweep kernels; after 4a, the step kernels of csrc/sp_step.cu (the
    function of both TPU step kernels) on a real carry, one fused iteration
    into a solve from the main path's final state, held in float64 and
    timed in float32: sp_step_fused at tau = 1 with the carry's cache
@@ -33,7 +39,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
       launch plus one sp_step_retrial launch per backtracking retrial, over
       the lanes still looping (their mean number is reported);
    b. the same farm on the fused sweep (``fused_step=False``), where every
-      CP sweep is one launch of a sweep kernel;
+      CP sweep is one launch of a sweep kernel (each farm prints its launches
+      by kernel and, for csrc/cp_sweep.cu, by body: the node body only);
    c. the same farm on the composed path (``fused_sweep=False``), whose
       prox_h* phase is the prox_h_conj kernel;
    d. ``Solver(algorithm="cp")``, one cp_sweep_fused launch per iteration,
@@ -57,28 +64,34 @@ Phases, each of which raises on failure (the script then exits non-zero):
       alone);
    c. the step kernels on a real ``_navar`` carry, as in phase 3;
    d. the ``_pncost`` farm, on the sweep kernels #3 and #4 (the step
-      kernel's class has uniform costs), and a CP and a Broyden ``Solver``
-      warm-started from it (#2, #5);
+      kernel's class has uniform costs; the node body with per-node costs),
+      and a CP and a Broyden ``Solver`` warm-started from it (#2, #5);
    e. the solutions: the root controls of both farms and of the two solves
-      against the port's float64 CPU solves, the root polytope rows, and
-      that the polytope binds (the float64 objective with it exceeds the one
-      without it).
+      against the port's float64 solves (``_pncost``'s on the card, see
+      below), the root polytope rows, and that the polytope binds (the
+      float64 objective with it exceeds the one without it).
 
-The float64 CPU solves of phases 5 and 7e run in REF_WORKERS worker
-processes, each started as soon as its farm has given the check states, so
-they overlap the card's phases; the farms of 7d and 7b therefore run first,
-right after phase 3, the ``_pncost`` farm ahead, since its solve (1022
-per-node matrices) is the longest and takes REF_THREADS_PNCOST threads.  The
-workers are stopped when the script ends, whatever happens.
+Each phase prints the seconds since the script started (``[time]``).
+
+The float64 reference solves of phases 5 and 7e run on the host's CPU in
+REF_WORKERS worker processes, each started as soon as its farm has given the
+check states, so they overlap the card's phases; the farms of 7d and 7b
+therefore run as soon as their kernels are built.  The ``_pncost`` solve
+(1022 per-node matrices, ~4,000 iterations: 819.5 s on the host's CPU, more
+than the rest of the run) runs on the card instead, after the timed
+phases: the same plain float64 solve, on the composed path, where no kernel
+runs for a problem with polytope rows (the launch counts show it).  The
+workers and the builds are stopped or waited for when the script ends,
+whatever happens.
 
 The last lines are the card, one JSON object with a row per kernel, and the
-result line ``{"ok": true, "device": {...}}``.  Numbers also go to
+result line ``{"ok": true, "device": {...}}``; the line before the card
+gives the whole run's seconds.  Numbers also go to
 ``build/chip_smoke.json``.  The script imports nothing of JAX.
 """
 
 from __future__ import annotations
 
-import concurrent.futures
 import functools
 import json
 import math
@@ -161,16 +174,24 @@ NAVAR, PNCOST = "poly_navar", "poly_navar_pncost"
 ROOT_ROWS_TOL = 1e-3  # the f32 farm's root polytope rows, as tol
 BIND_MARGIN = 1e-4  # objective with the polytope - without, at a check state
 # the float64 CPU reference solves run in worker processes beside the card's
-# phases: per-node AV@R slows their convergence (thousands of iterations).
-# Each takes one thread but the _pncost solve, whose per-node matrix products
-# are large enough to gain from more (of the host's 8 cores)
+# phases, one thread each: per-node AV@R slows their convergence (thousands
+# of iterations)
 REF_WORKERS, REF_CAP = 4, 10_000
-REF_THREADS_PNCOST = 4
+# the element body's row: server_heat N=4 above the node body's 32 states
+WIDE_NX, WIDE_N = 33, 4
+ELEMENT_CAP = 3000
+
+
+T0 = time.perf_counter()
 
 
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
+
+
+def stamp(phase):
+    print(f"[time] {phase} at {time.perf_counter() - T0:.1f} s", flush=True)
 
 
 def card_line() -> str:
@@ -372,9 +393,24 @@ def row_name(name, tag):
     return name if tag is None else f"{name}[{tag}]"
 
 
-def sweep_kernel_checks(data, meta, card, tag=None):
-    """Phase 3 (7a with ``tag``): the four whole-sweep kernels against their
-    plain versions; the rows are named ``name[tag]``."""
+def cost_bytes(data):
+    """Bytes of the per-node cost matrices (0 where uniform): what a node-body
+    pass of L or L' reads from them, per lane."""
+    return nbytes_of([a for a in (data.sqrtQ, data.sqrtR, data.sqrtQN)
+                      if a.shape[0] != 1])
+
+
+# passes of L or L' over the cost matrices per lane, by sweep kernel: L' and
+# L in the sweep, both again for M r, both again for M d
+COST_PASSES = {"cp_sweep_fused": 2, "cp_sweep_metric_fused": 4,
+               "candidate_sweep_fused": 6}
+
+
+def sweep_kernel_checks(data, meta, card, tag=None, names=None):
+    """Phase 3 (7a with ``tag``): the four whole-sweep kernels (or those in
+    ``names``) against their plain versions; the rows are named
+    ``name[tag]``.  With per-node costs, prints the cost-matrix bytes a
+    launch reads from the L2 and their rate."""
     from spock_tpu_torch.algorithms import common
     from spock_tpu_torch.ops import linop, sweep_kernels
     from spock_tpu_torch.problem import step_size
@@ -414,9 +450,14 @@ def sweep_kernel_checks(data, meta, card, tag=None):
             lambda: linop.metric_apply(data, meta, z, v, g, s),
             [z, v]),
     }
-    consts = sweep_kernels._consts(data, meta)
+    # the kernels read either a cost matrix or its node-minor copy: the
+    # constants without the copies
+    consts = sweep_kernels._consts(data, meta)[:sweep_kernels.N_CONSTS]
+    body = sweep_kernels.sweep_body(meta, data, data.dtype)
     rows = []
     for name, (kernel, plain, inputs) in calls.items():
+        if names is not None and name not in names:
+            continue
         got = kernel()
         torch.cuda.synchronize()
         ref = plain()
@@ -446,6 +487,13 @@ def sweep_kernel_checks(data, meta, card, tag=None):
         rows.append(kernel_row(row_name(name, tag), source, replaces,
                                max_err, time_ms(kernel), time_ms(plain),
                                nbytes, ops, card))
+        if name in COST_PASSES:
+            per_lane = COST_PASSES[name] * cost_bytes(data)
+            print(f"[kernel] {row_name(name, tag)}: {body} body"
+                  + (f"; per-node cost matrices read {per_lane / 1e6:.1f} MB "
+                     f"a lane, {B * per_lane / 1e9:.2f} GB a launch, "
+                     f"{B * per_lane / rows[-1]['ms'] / 1e6:.0f} GB/s"
+                     if per_lane else "") + f" [{card}]", flush=True)
     return rows
 
 
@@ -546,7 +594,7 @@ def step_kernel_checks(data, meta, spec, res2, card, opts, tag=None,
     g = step_size(data)
     data64, meta64 = build(spec, dtype=torch.float64)
     g64 = step_size(data64)
-    consts = sweep_kernels._consts(data, meta)
+    consts = sweep_kernels._consts(data, meta)[:sweep_kernels.N_CONSTS]
     rows, extra = [], {}
 
     def inputs(cache, tau, dtype=torch.float32):
@@ -725,6 +773,70 @@ def reset_counts():
             counts[k] = 0
 
 
+def check_node_body(counts, label, kernels):
+    """A farm or solve whose sweep kernels ran the node body only: every
+    launch of ``kernels`` (at least one of them) went to it."""
+    sweeps = sum(counts[k] for k in kernels)
+    check(sweeps >= 1 and counts["cp_sweep_node_body"] == sweeps
+          and counts["cp_sweep_element_body"] == 0,
+          f"{label}: the sweep kernels' launches by body "
+          f"{counts['cp_sweep_node_body']} node, "
+          f"{counts['cp_sweep_element_body']} element, for {sweeps} sweeps")
+
+
+SWEEP_LAUNCHES = ("cp_sweep_fused", "cp_sweep_metric_fused",
+                  "candidate_sweep_fused")
+
+
+def element_body_check(card, device):
+    """Phase 3, the element body: candidate_sweep_fused against its plain
+    version on server_heat N=WIDE_N at nx = nu = WIDE_NX (above the node
+    body's 32), then a 4-lane Solver on that problem, which runs SuperMann
+    on the sweep kernels (the step kernels stop at 32 states too), with the
+    launch counts set to 0 just before and read just after.  Returns the
+    row (its launches from the solve) and the solve's numbers."""
+    from spock_tpu_torch import build
+    from spock_tpu_torch.algorithms import supermann as sp
+    from spock_tpu_torch.models import server_heat
+    from spock_tpu_torch.ops import sweep_kernels
+    from spock_tpu_torch.solver import Solver
+
+    spec = server_heat.make_spec(N=WIDE_N, nx=WIDE_NX, d=D)
+    data, meta = build(spec, dtype=torch.float32, device=device)
+    check(sweep_kernels.sweep_body(meta, data, data.dtype) == "element"
+          and not sp.use_fused_step(data, meta, sp.SuperMannOpts()),
+          f"nx={WIDE_NX}: not on the element body of the sweep kernels")
+    tag = f"nx{WIDE_NX}"
+    row, = sweep_kernel_checks(data, meta, card, tag=tag,
+                               names=("candidate_sweep_fused",))
+    rng = np.random.default_rng(2)
+    x0 = torch.tensor(rng.uniform(-0.6, 0.6, (SOLVE_LANES, meta.nx)),
+                      dtype=torch.float32, device=device)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = Solver(data, meta, max_iter=ELEMENT_CAP, device=device).solve(
+        x0, tol=TOL)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = launch_counts()
+    iters = res.iterations.cpu().numpy()
+    check(bool(res.converged.all()), f"{tag} solve did not converge: "
+          f"iterations {iters.tolist()}")
+    sweeps = sum(counts[k] for k in SWEEP_LAUNCHES)
+    check(counts["candidate_sweep_fused"] >= int(iters.max())
+          and counts["cp_sweep_element_body"] == sweeps
+          and counts["cp_sweep_node_body"] == 0,
+          f"{tag} solve: launches {counts}")
+    row["launches"] = counts["candidate_sweep_fused"]
+    print(f"[{tag} solve] {SOLVE_LANES} lanes cold: iterations "
+          f"{iters.tolist()} in {wall_s:.2f} s; sweep launches by body: "
+          f"element {counts['cp_sweep_element_body']}, node "
+          f"{counts['cp_sweep_node_body']} [{card}]", flush=True)
+    return row, dict(iterations=iters.tolist(), wall_s=wall_s,
+                     launches=counts)
+
+
 def check_step_farm(counts, farm_iters, label):
     """A farm on the fused step: one sp_step_fused launch per farm iteration
     and retrial launches, no other kernel.  Returns the retrial launches per
@@ -814,34 +926,52 @@ def farm(data, meta, x0, ws, card, device, label, warm_steps, **path):
     return res1, res2, nums, farm_iters
 
 
-def reference_solve(spec, xs, threads):
-    """The port's float64 CPU solve (plain versions, composed iteration, tol
-    1e-5) from the states xs [lanes, nx] (numpy), run in a worker process on
-    ``threads`` threads: (root controls, objectives, seconds, iterations,
-    converged)."""
+def reference_solve(spec, xs, device="cpu"):
+    """The port's float64 solve (plain versions, composed iteration, tol
+    1e-5) from the states xs [lanes, nx] (numpy): on the CPU, in a worker
+    process on one thread; on the card, on the composed path
+    (``fused_sweep=False``), where no kernel runs for a problem with
+    polytope rows (checked).  Returns (root controls, objectives, seconds,
+    iterations, converged)."""
     from spock_tpu_torch import build
     from spock_tpu_torch.solver import Solver
 
-    torch.set_num_threads(threads)
     t0 = time.perf_counter()
-    data64, meta64 = build(spec, dtype=torch.float64, device="cpu")
+    on_card = device != "cpu"
+    if on_card:
+        check(spec.polytope is not None, "a reference solve on the card "
+              "needs polytope rows, which keep every kernel out of it")
+        reset_counts()
+    else:
+        torch.set_num_threads(1)
+    data64, meta64 = build(spec, dtype=torch.float64, device=device)
     ref = Solver(data64, meta64, algorithm="spock", max_iter=REF_CAP,
-                 device="cpu", fused_step=False).solve(torch.tensor(xs),
-                                                       tol=1e-5)
-    return (ref.z.u[:, :, 0].numpy(), ref.z.s[:, 0].numpy(),
+                 device=device, fused_step=False,
+                 fused_sweep=not on_card).solve(
+                     torch.tensor(xs, device=device), tol=1e-5)
+    if on_card:
+        counts = launch_counts()
+        check(not any(counts.values()),
+              f"the reference solve on the card launched kernels: {counts}")
+    return (ref.z.u[:, :, 0].cpu().numpy(), ref.z.s[:, 0].cpu().numpy(),
             time.perf_counter() - t0, ref.iterations.tolist(),
             bool(ref.converged.all()))
 
 
-def submit_reference(pool, spec, xs, threads=1):
-    """Start :func:`reference_solve` from the first CHECK_LANES states."""
-    return pool.apply_async(reference_solve, (
-        spec, xs[:CHECK_LANES].double().cpu().numpy(), threads))
+def check_states(xs):
+    """The first CHECK_LANES states of xs, in float64 numpy."""
+    return xs[:CHECK_LANES].double().cpu().numpy()
+
+
+def submit_reference(pool, spec, xs):
+    """Start :func:`reference_solve` on the CPU from the check states."""
+    return pool.apply_async(reference_solve, (spec, check_states(xs)))
 
 
 def reference(job, label):
-    """The result of a submitted reference solve, which must converge."""
-    u, obj, seconds, iters, ok = job.get()
+    """The result of a reference solve (submitted, or done: a tuple), which
+    must converge."""
+    u, obj, seconds, iters, ok = job if isinstance(job, tuple) else job.get()
     check(ok, f"{label}: float64 CPU reference did not converge in {REF_CAP} "
           f"iterations: {iters}")
     return u, obj, seconds, iters
@@ -850,7 +980,7 @@ def reference(job, label):
 def solution_check(data, meta, spec, xs, ws, card, device, ref, tag=None,
                    ref_free=None):
     """Phase 5 (7e with ``tag``): f32 root controls of a cold 1-step farm on
-    the configuration's default path against the port's float64 CPU solve
+    the configuration's default path against the port's float64 plain solve
     ``ref`` (submitted from the same states).  With a polytope, also the
     root rows of the f32 controls, and with ``ref_free`` (the solve without
     the polytope) whether the polytope binds: the float64 objective with it
@@ -867,7 +997,7 @@ def solution_check(data, meta, spec, xs, ws, card, device, ref, tag=None,
     u_ref, obj, ref_s, ref_iters = reference(ref, label)
     err = float(np.abs(u_f32 - u_ref).max())
     print(f"[{label}] controls_max_err={err:.3e} over {CHECK_LANES} lanes "
-          f"(f32 card farm vs f64 CPU solve: {ref_iters} iterations in "
+          f"(f32 card farm vs f64 plain solve: {ref_iters} iterations in "
           f"{ref_s:.1f} s, limit {CONTROLS_TOL}) [{card}]", flush=True)
     out = dict(controls_max_err=err, reference_s=ref_s,
                reference_iterations=ref_iters)
@@ -953,14 +1083,14 @@ def solver_controls(runs, u_ref, card):
 
 def wide_farms(spec, x0, ws, card, device, opts, pool, built):
     """The farm of 7d and phase 7b: the ``_pncost`` farm on the sweep
-    kernels and the ``_navar`` farm on the fused step, each followed by the
-    submission of its float64 reference solves; ``built()`` waits for the
-    step kernels' build in between.  Returns their state."""
+    kernels, once they are built, and, once every kernel is (``built()``),
+    the ``_navar`` farm on the fused step, followed by the submission of its
+    float64 reference solves.  Returns their state."""
     import dataclasses
 
     from spock_tpu_torch import build
     from spock_tpu_torch.algorithms import supermann as sp
-    from spock_tpu_torch.ops import spstep, sweep_kernels
+    from spock_tpu_torch.ops import _build, spstep, sweep_kernels
 
     w = types.SimpleNamespace()
     w.spec_n, w.spec_p = wide_specs(spec)
@@ -974,6 +1104,7 @@ def wide_farms(spec, x0, ws, card, device, opts, pool, built):
           "kernel's")
 
     # 7d. the _pncost farm on the sweep kernels #3 and #4
+    _build.build_all(["cp_sweep"])
     _, w.res2_p, w.pnums, p_iters = farm(
         w.data_p, w.meta_p, x0, ws, card, device, f"{PNCOST} fused-sweep",
         WARM_STEPS)
@@ -985,8 +1116,7 @@ def wide_farms(spec, x0, ws, card, device, opts, pool, built):
     check(pcounts["sp_step_fused"] == 0 and pcounts["sp_step_retrial"] == 0
           and pcounts["prox_h_conj"] == 0,
           f"{PNCOST}: the farm launched the step or prox kernel")
-    w.ref_p = submit_reference(pool, w.spec_p, w.res2_p.xs,
-                               threads=REF_THREADS_PNCOST)
+    check_node_body(pcounts, f"{PNCOST} farm", SWEEP_LAUNCHES)
     built()
 
     # 7b. the _navar farm on the fused step: sp_step_fused alone
@@ -1022,6 +1152,7 @@ def wide_checks(w, ws, card, device, opts):
     cp, u_cp = solver_run(w.data_p, w.meta_p, w.res2_p, card,
                           f"cp solve [{PNCOST}]", "cp_sweep_fused",
                           algorithm="cp", max_iter=CP_CAP)
+    check_node_body(cp["launches"], f"cp solve [{PNCOST}]", SWEEP_LAUNCHES)
     prow[row_name("cp_sweep_fused", PNCOST)]["launches"] = (
         cp["launches"]["cp_sweep_fused"])
     broyden, u_broyden = solver_run(
@@ -1031,12 +1162,16 @@ def wide_checks(w, ws, card, device, opts):
     prow[row_name("metric_apply_fused", PNCOST)]["launches"] = (
         broyden["launches"]["metric_apply_fused"])
 
-    # 7e. the solutions
+    # 7e. the solutions; the _pncost reference on the card, after every
+    # timed phase, while the _navar ones finish on the host
+    stamp("7a-7d done")
+    ref_p = reference_solve(w.spec_p, check_states(w.res2_p.xs), "cuda")
+    stamp("the _pncost reference solve done")
     nsol, _ = solution_check(w.data_n, w.meta_n, w.spec_n, w.res2_n.xs, ws,
                              card, device, w.ref_n, tag=NAVAR,
                              ref_free=w.ref_free)
     psol, u_ref = solution_check(w.data_p, w.meta_p, w.spec_p, w.res2_p.xs,
-                                 ws, card, device, w.ref_p, tag=PNCOST)
+                                 ws, card, device, ref_p, tag=PNCOST)
     solver_controls(((f"cp solve [{PNCOST}]", u_cp, cp),
                      (f"broyden solve [{PNCOST}]", u_broyden, broyden)),
                     u_ref, card)
@@ -1125,18 +1260,15 @@ def main():
     check(not torch.backends.cudnn.allow_tf32, "TF32 convolutions are on")
     device = torch.device("cuda")
 
-    # ---- 2. build: sp_step compiles beside phase 3 and the _pncost farm
-    t0 = time.perf_counter()
-    _build.build_all(["cp_sweep", "metric_apply", "prox_h_conj"])
-    builder = concurrent.futures.ThreadPoolExecutor(1)
-    step_build = builder.submit(_build.build_all)
+    # ---- 2. build: every source at once, in the background
+    _build.start()
 
     @functools.cache
     def built():
         """Waits for every build (a failed one raises) and reports it:
         (seconds to the last library, ptxas summaries)."""
-        step_build.result()
-        build_s = time.perf_counter() - t0
+        _build.build_all()
+        build_s = time.perf_counter() - T0
         for name, (sec, log) in _build.BUILD_LOG.items():
             print(f"[build] {name}: nvcc {sec:.1f} s\n{log.strip()}",
                   flush=True)
@@ -1158,7 +1290,10 @@ def main():
         with multiprocessing.get_context("spawn").Pool(REF_WORKERS) as pool:
             result = smoke(card, device, pool, built)
     finally:
-        builder.shutdown(wait=True)
+        _build.wait()
+    run_s = time.perf_counter() - T0
+    print(f"[time] the whole run took {run_s:.1f} s, {result['build_s']:.1f} "
+          f"s of them until every kernel was built [{card}]", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": result["kernels"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1167,19 +1302,18 @@ def main():
 
 
 def smoke(card, device, pool, built):
-    """Phases 3-7; ``built()`` waits for the step kernels' build.  Returns
-    the numbers written to build/chip_smoke.json."""
+    """Phases 3-7; ``built()`` waits for every build and reports it.
+    Returns the numbers written to build/chip_smoke.json."""
     from spock_tpu_torch import SuperMannOpts, build
     from spock_tpu_torch.models import server_heat
-    from spock_tpu_torch.ops import spstep
+    from spock_tpu_torch.ops import spstep, sweep_kernels
 
     spec = server_heat.make_spec(N=N, nx=NX, d=D)
     data, meta = build(spec, dtype=torch.float32)
     check(data.device.type == "cuda", "build() did not default to the card")
 
-    # ---- 3. kernels against their plain versions ----
+    # ---- 3. the prox_h* kernel against its plain version ----
     kernels = [prox_kernel_check(data, meta, card)]
-    kernels += sweep_kernel_checks(data, meta, card)
     rows = {k["name"]: k for k in kernels}
 
     rng = np.random.default_rng(0)
@@ -1188,11 +1322,26 @@ def smoke(card, device, pool, built):
     ws = torch.tensor(rng.integers(0, D, size=(COLD_STEPS + WARM_STEPS, B)),
                       device=device)
 
+    # ---- 4c. the composed path (fused_sweep=False): the prox_h* kernel
+    # alone, while the other kernels build ----
+    _, _, cnums, c_iters = farm(data, meta, x0, ws, card, device, "composed",
+                                WARM_STEPS, fused_sweep=False)
+    launches = cnums["launches"]["prox_h_conj"]
+    check(launches >= c_iters,
+          f"prox_h_conj kernel launched {launches} times in {c_iters} farm "
+          "iterations")
+    check(sum(cnums["launches"][k] for k in cnums["launches"]
+              if k != "prox_h_conj") == 0,
+          "the composed path launched a sweep or step kernel")
+    rows["prox_h_conj"]["launches"] = launches
+    stamp("4c done")
+
     # ---- 7d, 7b: the wider class's farms first, whose reference solves
     # then run beside the phases below ----
     opts = SuperMannOpts()
     wide_state = wide_farms(spec, x0, ws, card, device, opts, pool, built)
     build_s, ptxas = built()
+    stamp("7d, 7b done")
     plans = {str(dt): spstep.smem_plan(data, meta, dt)
              for dt in (torch.float32, torch.float64)}
     for dt, plan in plans.items():
@@ -1200,6 +1349,24 @@ def smoke(card, device, pool, built):
               f"dynamic shared memory per block, costates in shared memory "
               f"{plan['costates_in_shared_memory']}, "
               f"{plan['riccati_groups']} Riccati node groups", flush=True)
+    for label, (d_, m_) in (("headline", (data, meta)),
+                            (PNCOST, (wide_state.data_p, wide_state.meta_p))):
+        for dt in (torch.float32, torch.float64):
+            plan = sweep_kernels.node_plan(m_, d_, torch.finfo(dt).bits // 8)
+            plans[f"cp_sweep node body, {label}, {dt}"] = plan
+            print(f"[ptxas] cp_sweep node body, {label}, {dt}: "
+                  f"{plan['bytes']} bytes of dynamic shared memory per "
+                  f"block, costates in shared memory "
+                  f"{plan['costates_in_shared_memory']}, "
+                  f"{plan['riccati_groups']} Riccati node groups", flush=True)
+
+    # ---- 3. the sweep kernels against their plain versions: the node
+    # body on the headline, the element body above 32 states ----
+    sweep_rows = sweep_kernel_checks(data, meta, card)
+    kernels += sweep_rows
+    rows.update({k["name"]: k for k in sweep_rows})
+    element_row, element = element_body_check(card, device)
+    stamp("phase 3 sweep rows done")
 
     # ---- 4a. the main path: the farm on the fused step ----
     res1, res2, nums, farm_iters = farm(data, meta, x0, ws, card, device,
@@ -1214,8 +1381,10 @@ def smoke(card, device, pool, built):
         mean_lanes=nums["mean_lanes_per_retrial"])
     step_launches(step_rows, nums["launches"])
     kernels += step_rows
+    stamp("4a and the step rows done")
 
-    # ---- 4b. the fused sweep (fused_step=False): kernels #3 and #4 ----
+    # ---- 4b. the fused sweep (fused_step=False): kernels #3 and #4 on the
+    # node body ----
     _, _, snums, s_iters = farm(data, meta, x0, ws, card, device,
                                 "fused-sweep", WARM_STEPS, fused_step=False)
     scounts = snums["launches"]
@@ -1226,20 +1395,9 @@ def smoke(card, device, pool, built):
           f"times in {s_iters} farm iterations")
     check(scounts["sp_step_fused"] == 0 and scounts["sp_step_retrial"] == 0,
           "the fused-sweep farm launched a step kernel")
+    check_node_body(scounts, "fused-sweep farm", SWEEP_LAUNCHES)
     for name in ("cp_sweep_metric_fused", "candidate_sweep_fused"):
         rows[name]["launches"] = scounts[name]
-
-    # ---- 4c. the composed path (fused_sweep=False): the prox_h* kernel ----
-    _, _, cnums, c_iters = farm(data, meta, x0, ws, card, device, "composed",
-                                WARM_STEPS, fused_sweep=False)
-    launches = cnums["launches"]["prox_h_conj"]
-    check(launches >= c_iters,
-          f"prox_h_conj kernel launched {launches} times in {c_iters} farm "
-          "iterations")
-    check(sum(cnums["launches"][k] for k in cnums["launches"]
-              if k != "prox_h_conj") == 0,
-          "the composed path launched a sweep or step kernel")
-    rows["prox_h_conj"]["launches"] = launches
     print(f"[paths] ms per farm iteration: fused step "
           f"{nums['ms_per_farm_iteration']:.2f}, fused sweep "
           f"{snums['ms_per_farm_iteration']:.2f}, composed "
@@ -1250,6 +1408,7 @@ def smoke(card, device, pool, built):
     # ---- 4d/4e. the Solver's paths: cp_sweep_fused, metric_apply_fused ----
     cp, u_cp = solver_run(data, meta, res2, card, "cp solve",
                           "cp_sweep_fused", algorithm="cp", max_iter=CP_CAP)
+    check_node_body(cp["launches"], "cp solve", SWEEP_LAUNCHES)
     rows["cp_sweep_fused"]["launches"] = cp["launches"]["cp_sweep_fused"]
     broyden, u_broyden = solver_run(
         data, meta, res2, card, "broyden solve", "metric_apply_fused",
@@ -1264,22 +1423,24 @@ def smoke(card, device, pool, built):
     solver_controls((("cp solve", u_cp, cp),
                      ("broyden solve", u_broyden, broyden)), u_ref, card)
 
-    # ---- 7. the wider class: kernel rows, Solvers and solutions ----
-    wide = wide_checks(wide_state, ws, card, device, opts)
-    kernels += wide.pop("rows")
-    check(all(k["launches"] for k in kernels),
-          "a kernel row has no launches on its path")
-
     # ---- 6. where the time goes ----
+    stamp("4b-5 done")
     prof = profile_farm(data, meta, res2, ws, card,
                         nums["ms_per_farm_iteration"])
+    stamp("6 done")
+
+    # ---- 7. the wider class: kernel rows, Solvers and solutions ----
+    wide = wide_checks(wide_state, ws, card, device, opts)
+    kernels += wide.pop("rows") + [element_row]
+    check(all(k["launches"] for k in kernels),
+          "a kernel row has no launches on its path")
 
     result = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                   build_s=build_s, kernels=kernels, step=step_extra,
                   fused_step_farm=nums, fused_sweep_farm=snums,
                   composed_farm=cnums, cp_solve=cp, broyden_solve=broyden,
                   controls_max_err=err, profile=prof, wide=wide,
-                  ptxas=ptxas, step_smem=plans)
+                  element_body_solve=element, ptxas=ptxas, smem_plans=plans)
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)

@@ -59,8 +59,17 @@
 // for device memory of a node's thread and the Riccati stages), not by
 // bandwidth: a retrial of one lane takes most of the time of one of all
 // 128 (chip_smoke.py times both).
+//
+// Built in two halves by two nvcc processes at once (ops/_build.py):
+// SPOCK_PART 4 compiles the float entries, 8 the double ones.
 
+// the step kernels' class has uniform costs: no per-node paths in the body
+#define SPOCK_NODE_COSTS 0
 #include "step_body.cuh"
+
+#ifndef SPOCK_PART
+#define SPOCK_PART 0
+#endif
 
 namespace spock {
 namespace {
@@ -281,7 +290,8 @@ sp_step_kernel(const __grid_constant__ StepParams<T> P) {
   // ---- phase 1: the fresh sweep, skipped by a lane with a valid cache ----
   SweepRed<T> fresh{T(0), T(0), T(0), T(0), T(0), T(0)};
   if (!cached) {
-    fresh = step_sweep<T, false>(P.x, lz, lz, T(0), lf, gdv, qg, x0, sm);
+    fresh = step_sweep<T, false>(P.x, lz, lz, T(0), lf, nullptr, true, gdv,
+                                 qg, x0, sm);
   }
 
   // ---- phase 2: residual, Anderson rows, Gram sums ----
@@ -379,7 +389,8 @@ sp_step_kernel(const __grid_constant__ StepParams<T> P) {
 
   // ---- phase 3: the candidate sweep at (z, v) + tau d into w ----
   const SweepRed<T> cand =
-      step_sweep<T, true>(P.x, lz, ld, tau, lw, gdv, qg, x0, sm);
+      step_sweep<T, true>(P.x, lz, ld, tau, lw, nullptr, true, gdv, qg, x0,
+                          sm);
 
   // ---- phase 4: K1 / K2 / fallback, the commit and the kept scalars ----
   const CommitIn<T> ci{cached ? sc[SC_RNC] : root(nonneg(fresh.dot)),
@@ -425,7 +436,7 @@ sp_retrial_kernel(const __grid_constant__ RetrialParams<T> P) {
   __syncthreads();
 
   const SweepRed<T> cand = step_sweep<T, true>(
-      P.x, lz, ld, tau, lw, P.gdv + slot * g.n_nl * P.x.s.ldu,
+      P.x, lz, ld, tau, lw, nullptr, true, P.gdv + slot * g.n_nl * P.x.s.ldu,
       P.qg + slot * P.x.s.qsize, P.x0 + lane * g.nx, sm);
   const CommitIn<T> ci{kp[KP_RN], kp[KP_NMZ], kp[KP_NMV], sc[SC_RSAFE],
                        sc[SC_QPOW], tau, kp[KP_G0], kp[KP_G1], kp[KP_G2],
@@ -444,11 +455,8 @@ bool make_params(Params& P, void* const* p, const int* dims,
   if (!make_consts(P.x.k, p, dims, coefs[0], coefs[1])) return false;
   const Geo& g = P.x.k.g;
   if (dims[DIM_PN_Q] || dims[DIM_PN_R] || dims[DIM_PN_QN]) return false;
-  if (g.nx > kMaxDim || g.nu > kMaxDim || g.nc > kMaxDim ||
-      g.ncL > kMaxDim) {
-    return false;
-  }
-  if (!plan_smem(P.x.s, g, P.x.k.sker == 0, static_cast<int>(sizeof(T)))) {
+  if (!node_fits(g) ||
+      !plan_smem(P.x.s, g, dims, static_cast<int>(sizeof(T)))) {
     return false;
   }
   P.c1 = static_cast<T>(coefs[2]);
@@ -467,20 +475,6 @@ void set_pairs(Pair<T>* const* pairs, int count, void* const* p) {
   }
 }
 
-// Launches ``kernel`` on ``grid`` blocks with the planned dynamic shared
-// memory.  Every launch lifts the kernel's limit above 48 KB: the attribute
-// belongs to the current device, and the call is cheap.
-template <class K, class Params>
-int launch_kernel(K kernel, const Params& P, int grid, void* stream) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (grid == 0) return 0;
-  kernel<<<grid, kThreads, P.x.s.bytes, static_cast<cudaStream_t>(stream)>>>(
-      P);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // Pointer order of the host array ``ptrs`` of sp_step (see ops/spstep.py),
 // 19 pointers a pair in the order of sweep_common.cuh's Block (null for an
 // absent polytope block):
@@ -490,7 +484,7 @@ int launch_kernel(K kernel, const Params& P, int grid, void* stream) {
 //   [266, 304)  the 2 kept pairs: fresh sweep, direction
 //   304 x0  305 scalar pack [B, 10]  306 output scalars [B, 16]
 //   307 kept scalars [B, 8]  308 dvec scratch  309 costate scratch
-//   [310, 335)  the sweep's constants, in make_consts's order (its four
+//   [310, 338)  the sweep's constants, in make_consts's order (its four
 //               scratch pointers unused)
 constexpr int kStepPairs = kInPairs + kOutPairs + 2;
 
@@ -524,7 +518,7 @@ int launch_step(const void* ptrs, const int* dims, const double* coefs,
 //   133 lanes [k] (int64)  134 x0  135 scalar pack [B, 10]
 //   136 kept scalars [B, 8]  137 output scalars [k, 16]
 //   138 dvec scratch [k, ...]  139 costate scratch [k, ...]
-//   [140, 165)  the sweep's constants, as for sp_step
+//   [140, 168)  the sweep's constants, as for sp_step
 constexpr int kRetrialPairs = 7;
 
 template <typename T>
@@ -550,27 +544,6 @@ int launch_retrial(const void* ptrs, const int* dims, const double* coefs,
   return launch_kernel(sp_retrial_kernel<T>, P, k, stream);
 }
 
-// The shared-memory plan of a launch: {bytes, costates in shared memory,
-// Riccati groups, costate scratch values per lane}; -1 entries when the
-// problem is outside the class.
-template <typename T>
-int plan(const int* dims, int* out) {
-  SweepConsts<T> k;
-  void* none[kLMatPtrs + 18] = {};
-  StepSmem s;
-  if (!make_consts(k, none, dims, 1.0, 1.0) ||
-      !plan_smem(s, k.g, dims[DIM_PN_RISK] == 0,
-                 static_cast<int>(sizeof(T)))) {
-    out[0] = out[1] = out[2] = out[3] = -1;
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  out[0] = s.bytes;
-  out[1] = s.q_shared;
-  out[2] = s.cmax;
-  out[3] = s.qsize;
-  return 0;
-}
-
 }  // namespace
 }  // namespace spock
 
@@ -579,14 +552,10 @@ int plan(const int* dims, int* out) {
 // nseg, then nseg (kind, lo, hi) triples); coefs: host double array (gamma,
 // sigma, c1, sigma_k2, lam, lam_sp).  One thread block per lane (per listed
 // lane for the retrial).  Return cudaGetLastError().
+#if SPOCK_PART != 8
 extern "C" int sp_step_f32(const void* ptrs, const int* dims,
                            const double* coefs, int B, void* stream) {
   return spock::launch_step<float>(ptrs, dims, coefs, B, stream);
-}
-
-extern "C" int sp_step_f64(const void* ptrs, const int* dims,
-                           const double* coefs, int B, void* stream) {
-  return spock::launch_step<double>(ptrs, dims, coefs, B, stream);
 }
 
 extern "C" int sp_retrial_f32(const void* ptrs, const int* dims,
@@ -594,14 +563,22 @@ extern "C" int sp_retrial_f32(const void* ptrs, const int* dims,
   return spock::launch_retrial<float>(ptrs, dims, coefs, k, stream);
 }
 
+// The shared-memory plan (step_body.cuh's node_plan) into out[4], for
+// chip_smoke.py's report: dsize is 4 or 8.
+extern "C" int sp_step_plan(const int* dims, int dsize, int* out) {
+  return dsize == 8 ? spock::node_plan<double>(dims, out)
+                    : spock::node_plan<float>(dims, out);
+}
+#endif
+
+#if SPOCK_PART != 4
+extern "C" int sp_step_f64(const void* ptrs, const int* dims,
+                           const double* coefs, int B, void* stream) {
+  return spock::launch_step<double>(ptrs, dims, coefs, B, stream);
+}
+
 extern "C" int sp_retrial_f64(const void* ptrs, const int* dims,
                               const double* coefs, int k, void* stream) {
   return spock::launch_retrial<double>(ptrs, dims, coefs, k, stream);
 }
-
-// The shared-memory plan (see plan above) into out[4], for chip_smoke.py's
-// report: dsize is 4 or 8.
-extern "C" int sp_step_plan(const int* dims, int dsize, int* out) {
-  return dsize == 8 ? spock::plan<double>(dims, out)
-                    : spock::plan<float>(dims, out);
-}
+#endif

@@ -1,29 +1,39 @@
-// The sweep body of the SuperMann step kernel (sp_step.cu), laid out for
-// Hopper: one Chambolle-Pock sweep of one lane, with the metric image of its
-// residual and, at a candidate, of the direction, run by one 512-thread
-// block.  It computes what sweep_body.cuh's sweep_lane computes, for the
-// step's problem class (uniform costs; risk data uniform or per node; with or
-// without polytope rows), in fewer and cheaper passes:
+// The node-per-thread sweep body, laid out for Hopper: one Chambolle-Pock
+// sweep of one lane, with the metric image of its residual and, at a
+// candidate, of the direction, run by one 512-thread block.  The SuperMann
+// step kernels (sp_step.cu) and the CP sweep kernels (cp_sweep.cu, for
+// problems whose nx, nu and polytope rows are at most 32) run it.  It
+// computes what sweep_body.cuh's sweep_lane computes (costs uniform or per
+// node; risk data uniform or per node; with or without polytope rows), in
+// fewer and cheaper passes:
 //
 //   * L and L' by node.  One thread owns a node and computes every entry of
 //     it: the primal column of the node, the dual column of its edge from the
-//     parent, and its non-leaf or leaf dual columns.  The 20-value input
-//     column of a matrix block (a parent's x, the sum of the children's qx,
-//     a leaf's x) is read once into registers, and every output row is a dot
-//     product with a matrix row staged in shared memory once per block
-//     (sqrtQ, sqrtR, sqrtQN and their transposes, rows padded to 4 values
-//     and read as 16-byte vectors).  Stage, parent and child indices are
-//     worked out once per node.  A composed input (z + tau d, c - o) is
-//     formed once per element as it is loaded.
+//     parent, and its non-leaf or leaf dual columns.  The input column of a
+//     matrix block (a parent's x, the sum of the children's qx, a leaf's x)
+//     is read once into registers, and every output row is a dot product
+//     with a matrix row.  Uniform cost matrices are staged in shared memory
+//     once per block (sqrtQ, sqrtR, sqrtQN and their transposes, rows padded
+//     to 4 values and read as 16-byte vectors).  Per-node ones are read from
+//     their node-minor copies in device memory ([rows, cols, nodes], made
+//     once per problem by the wrapper): the threads of a warp own
+//     consecutive nodes, so each load of a warp reads 32 consecutive values
+//     and one copy serves a matrix and its transpose.  L' cannot sum the
+//     children's columns first when each child has its own matrix: the
+//     thread accumulates M_k' a_k child by child, one input value against a
+//     matrix row at a time, into a register column.  Stage, parent and child
+//     indices are worked out once per node.  A composed input (z + tau d,
+//     c - o) is formed once per element as it is loaded.
 //   * w1 = c - gamma L' c_v and the S2 projector in one pass: the thread of
 //     a non-leaf node forms its own y and its children's s and tau itself,
 //     so the projector needs no barrier and no second read.  The dual half,
 //     v1 = c_v + sigma L (2 wbar - c_z), projects each second-order cone in
 //     the thread that formed its column.
 //   * M r and M d in one traversal: the thread of a node computes the node's
-//     entries of M r and then of M d, with the node's indices worked out
-//     once and two accumulators.  (Sharing each matrix-row load between the
-//     two products needs two register columns, which spill.)
+//     entries of M r (stored when asked: each entry by the one thread that
+//     owns it) and then of M d, with the node's indices worked out once and
+//     two accumulators.  (Sharing each matrix-row load between the two
+//     products needs two register columns, which spill.)
 //   * Loads batched: a thread loads the values of 8 rows of a node before
 //     it uses them, so it waits for device memory once per 8 rows; a lane
 //     alone on the card is bound by these waits and by the Riccati stages,
@@ -36,7 +46,7 @@
 //     of four.  The stage's K, Rtinv, ABK, PB (and B) sit in shared memory;
 //     the costates of a stage and its children sit in shared memory when
 //     they fit (device memory otherwise), dvec goes to device memory for the
-//     forward rollout.
+//     forward rollout.  (The Riccati factors do not depend on the costs.)
 //
 // Every reduction is a fixed-order block reduction, so a launch is
 // deterministic.  No tensor cores: float32 stays true float32.
@@ -45,7 +55,16 @@
 
 #include "sweep_body.cuh"
 
+// Whether the body reads per-node cost matrices.  sp_step.cu, whose class
+// has uniform costs, sets it to 0 before including this file, which leaves
+// its code free of the per-node paths.
+#ifndef SPOCK_NODE_COSTS
+#define SPOCK_NODE_COSTS 1
+#endif
+
 namespace spock {
+
+constexpr bool kNodeCosts = SPOCK_NODE_COSTS != 0;
 
 // nx, nu, ny + 2 d, and the polytope rows of a node are at most this: a
 // column fits in registers, and a Riccati node's rows in one warp.
@@ -74,12 +93,23 @@ struct StepSmem {
   int bytes;
 };
 
-// Plans the shared memory of a block for geometry g and values of
+// Whether the node body takes geometry g: a node's columns fit in registers
+// (nx, nu and the polytope rows of a node; ny + 2 d is checked by
+// make_consts).
+inline bool node_fits(const Geo& g) {
+  return g.nx <= kMaxDim && g.nu <= kMaxDim && g.nc <= kMaxDim &&
+         g.ncL <= kMaxDim;
+}
+
+// Plans the shared memory of a block for geometry g, the per-node flags of
+// dims (uniform matrices are staged, per-node ones are not) and values of
 // ``vsize`` bytes; returns false if no layout fits.
-inline bool plan_smem(StepSmem& s, const Geo& g, bool ker_uniform,
+inline bool plan_smem(StepSmem& s, const Geo& g, const int* dims,
                       int vsize) {
   const int ldx = pad4(g.nx), ldu = pad4(g.nu);
   const int mker = g.ny + 2 * g.d, ldk = pad4(mker);
+  const bool q = dims[DIM_PN_Q] == 0, r = dims[DIM_PN_R] == 0;
+  const bool qn = dims[DIM_PN_QN] == 0, ker = dims[DIM_PN_RISK] == 0;
   s.ldx = ldx;
   s.ldu = ldu;
   s.ldk = ldk;
@@ -89,15 +119,15 @@ inline bool plan_smem(StepSmem& s, const Geo& g, bool ker_uniform,
     o += pad4(n);
     return at;
   };
-  s.QT = take(g.nx * ldx);
-  s.Q = take(g.nx * ldx);
-  s.RT = take(g.nu * ldu);
-  s.R = take(g.nu * ldu);
-  s.QNT = take(g.nx * ldx);
-  s.QN = take(g.nx * ldx);
+  s.QT = take(q ? g.nx * ldx : 0);
+  s.Q = take(q ? g.nx * ldx : 0);
+  s.RT = take(r ? g.nu * ldu : 0);
+  s.R = take(r ? g.nu * ldu : 0);
+  s.QNT = take(qn ? g.nx * ldx : 0);
+  s.QN = take(qn ? g.nx * ldx : 0);
   s.Bt = take(g.d * g.nu * ldx);
   s.Bf = take(g.d * g.nx * ldu);
-  s.ker = take(ker_uniform ? mker * ldk : 0);
+  s.ker = take(ker ? mker * ldk : 0);
   int b = o;
   s.Rti = b;
   b += g.nu * ldu;
@@ -317,19 +347,25 @@ __device__ void stage_consts(const StepConsts<T>& X, T* sm) {
   const LMats<T>& m = X.k.lm;
   const int tid = threadIdx.x;
   const int nx = g.nx, nu = g.nu, ldx = s.ldx, ldu = s.ldu;
+  // the uniform cost matrices (per-node ones have node-minor copies)
+  const bool q = m.sq == 0, qn = m.sqn == 0;
   for (int e = tid; e < nx * ldx; e += kThreads) {
-    const int r = e / ldx, q = e % ldx;
-    const bool in = q < nx;
-    sm[s.Q + e] = in ? m.sqrtQ[r * nx + q] : T(0);
-    sm[s.QT + e] = in ? m.sqrtQ[q * nx + r] : T(0);
-    sm[s.QN + e] = in ? m.sqrtQN[r * nx + q] : T(0);
-    sm[s.QNT + e] = in ? m.sqrtQN[q * nx + r] : T(0);
+    const int r = e / ldx, c = e % ldx;
+    const bool in = c < nx;
+    if (q) {
+      sm[s.Q + e] = in ? m.sqrtQ[r * nx + c] : T(0);
+      sm[s.QT + e] = in ? m.sqrtQ[c * nx + r] : T(0);
+    }
+    if (qn) {
+      sm[s.QN + e] = in ? m.sqrtQN[r * nx + c] : T(0);
+      sm[s.QNT + e] = in ? m.sqrtQN[c * nx + r] : T(0);
+    }
   }
-  for (int e = tid; e < nu * ldu; e += kThreads) {
-    const int r = e / ldu, q = e % ldu;
-    const bool in = q < nu;
-    sm[s.R + e] = in ? m.sqrtR[r * nu + q] : T(0);
-    sm[s.RT + e] = in ? m.sqrtR[q * nu + r] : T(0);
+  for (int e = tid; e < nu * ldu && m.sr == 0; e += kThreads) {
+    const int r = e / ldu, c = e % ldu;
+    const bool in = c < nu;
+    sm[s.R + e] = in ? m.sqrtR[r * nu + c] : T(0);
+    sm[s.RT + e] = in ? m.sqrtR[c * nu + r] : T(0);
   }
   // B [d, nx, nu]: B_k' rows for the backward sweep, B_k rows forward
   for (int e = tid; e < g.d * nu * ldx; e += kThreads) {
@@ -409,29 +445,156 @@ __device__ __forceinline__ void rows(int n, Load&& load, Use&& use) {
   }
 }
 
-// The entry of M x at one element: val = x - scale * (L or L' x), added to
-// <rr, M x> and to the inf-norm m.
+// rows() with every row index a compile-time constant (the loop unrolled
+// over kMaxDim), so that ``use`` may index a register column by it.
+template <class Load, class Use>
+__device__ __forceinline__ void rows_all(int n, Load&& load, Use&& use) {
+  using V = decltype(load(0));
+#pragma unroll
+  for (int r0 = 0; r0 < kMaxDim; r0 += kBatch) {
+    if (r0 < n) {
+      V v[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        if (r0 + k < n) v[k] = load(r0 + k);
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        if (r0 + k < n) use(r0 + k, v[k]);
+      }
+    }
+  }
+}
+
+// sum_q p[q cs] w[q] over n values: a row of a node-minor copy in device
+// memory (read-only, through the L2 and the read-only cache).
 template <typename T>
-__device__ __forceinline__ void maccum(T x, T rr, T l, T scale, T& sum,
-                                       T& m) {
-  const T val = x - scale * l;
-  sum += rr * val;
-  m = absmax(m, val);
+__device__ __forceinline__ T dot_nm(const T* p, int cs, const T (&w)[kMaxDim],
+                                    int n) {
+  T acc = T(0);
+#pragma unroll
+  for (int q = 0; q < kMaxDim; ++q) {
+    if (q < n) acc += __ldg(p + q * cs) * w[q];
+  }
+  return acc;
+}
+
+// The rows of one node's matrix of L: entry (r, q) at p[r rs + q cs].
+// Uniform: rows staged in shared memory (cs = 1, rows of rs values, a
+// multiple of 4, 16-byte aligned and zero-padded); per node: a node's
+// entries in its node-minor copy.
+template <typename T>
+struct MatRows {
+  const T* p;
+  int rs, cs;
+  bool node;
+};
+
+// The rows of the h x h matrix of column j of a block whose matrix is
+// staged at ``at`` (row length ld) when uniform, or is per node with the
+// node-minor copy nm [h, h, nn]; with ``adj`` the rows of its transpose.
+template <typename T>
+__device__ __forceinline__ MatRows<T> mat_rows(const T* at, int ld,
+                                               const T* nm, int h, int nn,
+                                               int j, bool adj) {
+  if constexpr (kNodeCosts) {
+    if (nm != nullptr) {
+      return adj ? MatRows<T>{nm + j, nn, h * nn, true}
+                 : MatRows<T>{nm + j, h * nn, nn, true};
+    }
+  }
+  return MatRows<T>{at, ld, 1, false};
+}
+
+// Calls use(r, load(r), t) for r < h in order, with t row r of m against
+// the register column w of n values.  The choice between staged and
+// node-minor rows is made once, outside the loop over the rows.
+template <typename T, class Load, class Use>
+__device__ __forceinline__ void mat_rows_dot(const MatRows<T>& m,
+                                             const T (&w)[kMaxDim], int n,
+                                             int h, Load&& load, Use&& use) {
+  using V = decltype(load(0));
+  if constexpr (kNodeCosts) {
+    if (m.node) {
+      rows(h, load, [&](int r, const V& v) {
+        use(r, v, dot_nm(m.p + r * m.rs, m.cs, w, n));
+      });
+      return;
+    }
+  }
+  rows(h, load, [&](int r, const V& v) {
+    use(r, v, dot_v(m.p + r * m.rs, w, m.rs));
+  });
+}
+
+// w[q] = sum over the d children k of a non-leaf node (columns c0 + k m of
+// a per-node block) of (M_k' a_k)[q] for q < h, 0 past h; M_k from the
+// node-minor copy nm [h, h, nn], a_k[p] = at(p, k).  One input value at a
+// time against a row of M_k, so the h loads of a row are in flight together.
+template <typename T, class At>
+__device__ __forceinline__ void child_product(T (&w)[kMaxDim], const T* nm,
+                                              int nn, int h, int d, int c0,
+                                              int m, At&& at) {
+#pragma unroll
+  for (int q = 0; q < kMaxDim; ++q) w[q] = T(0);
+  for (int k = 0; k < d; ++k) {
+    const T* mk = nm + c0 + k * m;
+    for (int p = 0; p < h; ++p) {
+      const T a = at(p, k);
+      const T* row = mk + p * h * nn;
+#pragma unroll
+      for (int q = 0; q < kMaxDim; ++q) {
+        if (q < h) w[q] += __ldg(row + q * nn) * a;
+      }
+    }
+  }
+}
+
+// Calls use(r, load(r), t) for r < h in order, with t row r of
+// sum_k M_k' a_k over the d children k of a non-leaf node: the child sums
+// of L' (a_k[q] = at(q, k), the child's column c0 + k m of a dual block).
+// Uniform M: M' (sum_k a_k), with the rows of M' staged at mt (row length
+// ld).  Per-node M: child by child from the node-minor copy nm [h, h, nn].
+template <typename T, class At, class Load, class Use>
+__device__ __forceinline__ void child_rows(const T* mt, int ld, const T* nm,
+                                           int nn, int h, int d, int c0,
+                                           int m, At&& at, Load&& load,
+                                           Use&& use) {
+  using V = decltype(load(0));
+  T w[kMaxDim];
+  if constexpr (kNodeCosts) {
+    if (nm != nullptr) {
+      child_product(w, nm, nn, h, d, c0, m, at);
+      rows_all(h, load, [&](int r, const V& v) { use(r, v, w[r]); });
+      return;
+    }
+  }
+  child_column(w, h, d, at);
+  rows(h, load,
+       [&](int r, const V& v) { use(r, v, dot_v(mt + r * ld, w, ld)); });
 }
 
 // The metric image of x at the entries node nd owns, accumulated against
 // the residual rr: sum += rr . (M x), mz / mv = max |M x| over its primal /
-// dual entries.
+// dual entries; each entry is also written to the lane mo unless it is
+// null.  An entry of M x is val = x - scale * (L or L' x).
 template <typename T, class XA, class RA>
 __device__ void metric_node(const StepConsts<T>& X, const T* sm, int nd,
-                            const XA& x, const RA& rr, T& sum, T& mz,
-                            T& mv) {
+                            const XA& x, const RA& rr, const Lane<T>* mo,
+                            T& sum, T& mz, T& mv) {
   const Geo& g = X.k.g;
   const StepSmem& s = X.s;
   const LMats<T>& lm = X.k.lm;
   const T gamma = X.k.gamma, sigma = X.k.sigma;
   const int nx = g.nx, nu = g.nu, n = g.n, n_nl = g.n_nl, n_nr = g.n_nr;
   const int n_lf = g.n_lf, ldx = s.ldx, ldu = s.ldu;
+  T* const* out = mo ? mo->p : nullptr;
+  auto acc = [&](int b, int i, T xv, T rv, T l, T scale, T& m) {
+    const T val = xv - scale * l;
+    sum += rv * val;
+    m = absmax(m, val);
+    if (out) out[b][i] = val;
+  };
   T w[kMaxDim];
   // (x, rr, and a third value) of rows of two blocks
   auto three = [&](int b0, int i0, int b1, int i1) {
@@ -441,33 +604,32 @@ __device__ void metric_node(const StepConsts<T>& X, const T* sm, int nd,
     const int t = stage_of(g, nd);
     const int c0 = child_of(g, nd, t, 0) - 1;
     const int mt = g.off[t + 1] - g.off[t];
-    // x: cx + sqrtQ' sum_k qx_k + Gx' pnl
-    child_column(w, nx, g.d, [&](int q, int k) {
-      return x(DQX, q * n_nr + c0 + k * mt);
-    });
-    rows(nx, [&](int r) { return three(PX, r * n + nd, DCX, r * n_nl + nd); },
-         [&](int r, const Three<T>& v) {
-           const T lt = v.c + dot_v(sm + s.QT + r * ldx, w, ldx) +
-                        poly_lt<DPNL>(lm.Gx, g.nc, nx, r, n_nl, nd, x);
-           maccum(v.a, v.b, lt, gamma, sum, mz);
-         });
-    child_column(w, nu, g.d, [&](int q, int k) {
-      return x(DRU, q * n_nr + c0 + k * mt);
-    });
-    rows(nu,
-         [&](int r) { return three(PU, r * n_nl + nd, DCU, r * n_nl + nd); },
-         [&](int r, const Three<T>& v) {
-           const T lt = v.c + dot_v(sm + s.RT + r * ldu, w, ldu) +
-                        poly_lt<DPNL>(lm.Gu, g.nc, nu, r, n_nl, nd, x);
-           maccum(v.a, v.b, lt, gamma, sum, mz);
-         });
+    // x: cx + sum_k sqrtQ_k' qx_k + Gx' pnl
+    child_rows(
+        sm + s.QT, ldx, X.k.nmQ, n_nr, nx, g.d, c0, mt,
+        [&](int q, int k) { return x(DQX, q * n_nr + c0 + k * mt); },
+        [&](int r) { return three(PX, r * n + nd, DCX, r * n_nl + nd); },
+        [&](int r, const Three<T>& v, T ct) {
+          const T lt =
+              v.c + ct + poly_lt<DPNL>(lm.Gx, g.nc, nx, r, n_nl, nd, x);
+          acc(PX, r * n + nd, v.a, v.b, lt, gamma, mz);
+        });
+    child_rows(
+        sm + s.RT, ldu, X.k.nmR, n_nr, nu, g.d, c0, mt,
+        [&](int q, int k) { return x(DRU, q * n_nr + c0 + k * mt); },
+        [&](int r) { return three(PU, r * n_nl + nd, DCU, r * n_nl + nd); },
+        [&](int r, const Three<T>& v, T ct) {
+          const T lt =
+              v.c + ct + poly_lt<DPNL>(lm.Gu, g.nc, nu, r, n_nl, nd, x);
+          acc(PU, r * n_nl + nd, v.a, v.b, lt, gamma, mz);
+        });
     const T sby = x(DSBY, nd);
-    maccum(x(PS, nd), rr(PS, nd), sby, gamma, sum, mz);
+    acc(PS, nd, x(PS, nd), rr(PS, nd), sby, gamma, mz);
     const T* bb = lm.b + nd * lm.sb;
     rows(g.ny,
          [&](int r) { return three(PY, r * n_nl + nd, DY, r * n_nl + nd); },
          [&](int r, const Three<T>& v) {
-           maccum(v.a, v.b, v.c - bb[r] * sby, gamma, sum, mz);
+           acc(PY, r * n_nl + nd, v.a, v.b, v.c - bb[r] * sby, gamma, mz);
          });
     // dual: y, sby, cx, cu, pnl of the node
     T by = T(0);
@@ -475,17 +637,17 @@ __device__ void metric_node(const StepConsts<T>& X, const T* sm, int nd,
          [&](int r) { return three(DY, r * n_nl + nd, PY, r * n_nl + nd); },
          [&](int r, const Three<T>& v) {
            by += bb[r] * v.c;
-           maccum(v.a, v.b, v.c, sigma, sum, mv);
+           acc(DY, r * n_nl + nd, v.a, v.b, v.c, sigma, mv);
          });
-    maccum(x(DSBY, nd), rr(DSBY, nd), x(PS, nd) - by, sigma, sum, mv);
+    acc(DSBY, nd, x(DSBY, nd), rr(DSBY, nd), x(PS, nd) - by, sigma, mv);
     rows(nx, [&](int r) { return three(DCX, r * n_nl + nd, PX, r * n + nd); },
          [&](int r, const Three<T>& v) {
-           maccum(v.a, v.b, v.c, sigma, sum, mv);
+           acc(DCX, r * n_nl + nd, v.a, v.b, v.c, sigma, mv);
          });
     rows(nu,
          [&](int r) { return three(DCU, r * n_nl + nd, PU, r * n_nl + nd); },
          [&](int r, const Three<T>& v) {
-           maccum(v.a, v.b, v.c, sigma, sum, mv);
+           acc(DCU, r * n_nl + nd, v.a, v.b, v.c, sigma, mv);
          });
     for (int r = 0; r < g.nc; ++r) {
       T ax = T(0);
@@ -494,8 +656,8 @@ __device__ void metric_node(const StepConsts<T>& X, const T* sm, int nd,
       for (int k = 0; k < nu; ++k) {
         au += lm.Gu[r * nu + k] * x(PU, k * n_nl + nd);
       }
-      maccum(x(DPNL, r * n_nl + nd), rr(DPNL, r * n_nl + nd), ax + au,
-             sigma, sum, mv);
+      acc(DPNL, r * n_nl + nd, x(DPNL, r * n_nl + nd),
+          rr(DPNL, r * n_nl + nd), ax + au, sigma, mv);
     }
   } else {
     const int l = nd - n_nl;
@@ -503,78 +665,79 @@ __device__ void metric_node(const StepConsts<T>& X, const T* sm, int nd,
     for (int q = 0; q < kMaxDim; ++q) {
       w[q] = q < nx ? x(DQNX, q * n_lf + l) : T(0);
     }
-    rows(nx,
-         [&](int r) { return three(PX, r * n + nd, DCXN, r * n_lf + l); },
-         [&](int r, const Three<T>& v) {
-           const T lt = v.c + dot_v(sm + s.QNT + r * ldx, w, ldx) +
-                        poly_lt<DPLF>(lm.GxN, g.ncL, nx, r, n_lf, l, x);
-           maccum(v.a, v.b, lt, gamma, sum, mz);
-         });
-    maccum(x(PS, nd), rr(PS, nd), T(0.5) * (x(DS12, l) + x(DS13, l)), gamma,
-           sum, mz);
+    mat_rows_dot(
+        mat_rows(sm + s.QNT, ldx, X.k.nmQN, nx, n_lf, l, true), w, nx, nx,
+        [&](int r) { return three(PX, r * n + nd, DCXN, r * n_lf + l); },
+        [&](int r, const Three<T>& v, T t) {
+          const T lt =
+              v.c + t + poly_lt<DPLF>(lm.GxN, g.ncL, nx, r, n_lf, l, x);
+          acc(PX, r * n + nd, v.a, v.b, lt, gamma, mz);
+        });
+    acc(PS, nd, x(PS, nd), rr(PS, nd), T(0.5) * (x(DS12, l) + x(DS13, l)),
+        gamma, mz);
     // dual: qNx, s12, s13, cxN, plf of the leaf
 #pragma unroll
     for (int q = 0; q < kMaxDim; ++q) {
       w[q] = q < nx ? x(PX, q * n + nd) : T(0);
     }
-    rows(nx,
-         [&](int r) {
-           return Two<T>{x(DQNX, r * n_lf + l), rr(DQNX, r * n_lf + l)};
-         },
-         [&](int r, const Two<T>& v) {
-           maccum(v.a, v.b, dot_v(sm + s.QN + r * ldx, w, ldx), sigma, sum,
-                  mv);
-         });
+    mat_rows_dot(
+        mat_rows(sm + s.QN, ldx, X.k.nmQN, nx, n_lf, l, false), w, nx, nx,
+        [&](int r) {
+          return Two<T>{x(DQNX, r * n_lf + l), rr(DQNX, r * n_lf + l)};
+        },
+        [&](int r, const Two<T>& v, T t) {
+          acc(DQNX, r * n_lf + l, v.a, v.b, t, sigma, mv);
+        });
     const T hs = T(0.5) * x(PS, nd);
-    maccum(x(DS12, l), rr(DS12, l), hs, sigma, sum, mv);
-    maccum(x(DS13, l), rr(DS13, l), hs, sigma, sum, mv);
+    acc(DS12, l, x(DS12, l), rr(DS12, l), hs, sigma, mv);
+    acc(DS13, l, x(DS13, l), rr(DS13, l), hs, sigma, mv);
     rows(nx,
          [&](int r) { return three(DCXN, r * n_lf + l, PX, r * n + nd); },
          [&](int r, const Three<T>& v) {
-           maccum(v.a, v.b, v.c, sigma, sum, mv);
+           acc(DCXN, r * n_lf + l, v.a, v.b, v.c, sigma, mv);
          });
     for (int r = 0; r < g.ncL; ++r) {
-      T acc = T(0);
+      T ax = T(0);
       for (int k = 0; k < nx; ++k) {
-        acc += lm.GxN[r * nx + k] * x(PX, k * n + nd);
+        ax += lm.GxN[r * nx + k] * x(PX, k * n + nd);
       }
-      maccum(x(DPLF, r * n_lf + l), rr(DPLF, r * n_lf + l), acc, sigma, sum,
-             mv);
+      acc(DPLF, r * n_lf + l, x(DPLF, r * n_lf + l), rr(DPLF, r * n_lf + l),
+          ax, sigma, mv);
     }
   }
   if (nd > 0) {
     // tau of the node, and the dual column of its edge from the parent
     const int j = nd - 1;
     const int p = parent_of(g, nd);
-    maccum(x(PTAU, j), rr(PTAU, j), T(0.5) * (x(DT5, j) + x(DT6, j)), gamma,
-           sum, mz);
+    acc(PTAU, j, x(PTAU, j), rr(PTAU, j), T(0.5) * (x(DT5, j) + x(DT6, j)),
+        gamma, mz);
 #pragma unroll
     for (int q = 0; q < kMaxDim; ++q) {
       w[q] = q < nx ? x(PX, q * n + p) : T(0);
     }
-    rows(nx,
-         [&](int r) {
-           return Two<T>{x(DQX, r * n_nr + j), rr(DQX, r * n_nr + j)};
-         },
-         [&](int r, const Two<T>& v) {
-           maccum(v.a, v.b, dot_v(sm + s.Q + r * ldx, w, ldx), sigma, sum,
-                  mv);
-         });
+    mat_rows_dot(
+        mat_rows(sm + s.Q, ldx, X.k.nmQ, nx, n_nr, j, false), w, nx, nx,
+        [&](int r) {
+          return Two<T>{x(DQX, r * n_nr + j), rr(DQX, r * n_nr + j)};
+        },
+        [&](int r, const Two<T>& v, T t) {
+          acc(DQX, r * n_nr + j, v.a, v.b, t, sigma, mv);
+        });
 #pragma unroll
     for (int q = 0; q < kMaxDim; ++q) {
       w[q] = q < nu ? x(PU, q * n_nl + p) : T(0);
     }
-    rows(nu,
-         [&](int r) {
-           return Two<T>{x(DRU, r * n_nr + j), rr(DRU, r * n_nr + j)};
-         },
-         [&](int r, const Two<T>& v) {
-           maccum(v.a, v.b, dot_v(sm + s.R + r * ldu, w, ldu), sigma, sum,
-                  mv);
-         });
+    mat_rows_dot(
+        mat_rows(sm + s.R, ldu, X.k.nmR, nu, n_nr, j, false), w, nu, nu,
+        [&](int r) {
+          return Two<T>{x(DRU, r * n_nr + j), rr(DRU, r * n_nr + j)};
+        },
+        [&](int r, const Two<T>& v, T t) {
+          acc(DRU, r * n_nr + j, v.a, v.b, t, sigma, mv);
+        });
     const T ht = T(0.5) * x(PTAU, j);
-    maccum(x(DT5, j), rr(DT5, j), ht, sigma, sum, mv);
-    maccum(x(DT6, j), rr(DT6, j), ht, sigma, sum, mv);
+    acc(DT5, j, x(DT5, j), rr(DT5, j), ht, sigma, mv);
+    acc(DT6, j, x(DT6, j), rr(DT6, j), ht, sigma, mv);
   }
 }
 
@@ -583,17 +746,19 @@ __device__ void metric_node(const StepConsts<T>& X, const T* sm, int nd,
 constexpr int kGroupRows = kMaxDim / 4;
 
 // One sweep of one lane at c = (z, v) (+ tau (dz, dv) when DIR) into the
-// output lane o, with <r, M r> and the inf-norms of M r, and with DIR also
-// <r, M d> and the inf-norms of M d.  gdv: the lane's [n_nl, ldu]
+// output lane o; with ``metric`` (always with DIR) also <r, M r> and the
+// inf-norms of M r, M r stored into the lane mr unless it is null, and with
+// DIR <r, M d> and the inf-norms of M d.  gdv: the lane's [n_nl, ldu]
 // feedforward terms; qg: its costate buffer when they are not in shared
 // memory; x0: its root state; sm: the block's dynamic shared memory, with
 // stage_consts done.  Starts and ends with a barrier.  Not inlined: the
-// tau = 1 and the retrial kernels share one copy of each sweep, which keeps
-// the build short.
+// kernels of a source share one copy of each sweep, which keeps the build
+// short.
 template <typename T, bool DIR>
 __device__ __noinline__ SweepRed<T> step_sweep(
     const StepConsts<T>& X, const Lane<T>& zl, const Lane<T>& dl, T tau,
-    const Lane<T>& ol, T* gdv, T* qg, const T* x0, T* sm) {
+    const Lane<T>& ol, const Lane<T>* mr, bool metric, T* gdv, T* qg,
+    const T* x0, T* sm) {
   const Geo& g = X.k.g;
   const StepSmem& s = X.s;
   const LMats<T>& lm = X.k.lm;
@@ -624,30 +789,28 @@ __device__ __noinline__ SweepRed<T> step_sweep(
       const int t = stage_of(g, i);
       const int mt = g.off[t + 1] - g.off[t];
       const int c0 = child_of(g, i, t, 0) - 1;
-      child_column(w, nx, d, [&](int q, int k) {
-        return c(DQX, q * n_nr + c0 + k * mt);
-      });
-      rows(nx,
-           [&](int r) {
-             return Two<T>{c(DCX, r * n_nl + i), c(PX, r * n + i)};
-           },
-           [&](int r, const Two<T>& v) {
-             const T lt = v.a + dot_v(sm + s.QT + r * ldx, w, ldx) +
-                          poly_lt<DPNL>(lm.Gx, g.nc, nx, r, n_nl, i, c);
-             o[PX][r * n + i] = v.b - gamma * lt;
-           });
-      child_column(w, nu, d, [&](int q, int k) {
-        return c(DRU, q * n_nr + c0 + k * mt);
-      });
-      rows(nu,
-           [&](int r) {
-             return Two<T>{c(DCU, r * n_nl + i), c(PU, r * n_nl + i)};
-           },
-           [&](int r, const Two<T>& v) {
-             const T lt = v.a + dot_v(sm + s.RT + r * ldu, w, ldu) +
-                          poly_lt<DPNL>(lm.Gu, g.nc, nu, r, n_nl, i, c);
-             o[PU][r * n_nl + i] = v.b - gamma * lt;
-           });
+      child_rows(
+          sm + s.QT, ldx, X.k.nmQ, n_nr, nx, d, c0, mt,
+          [&](int q, int k) { return c(DQX, q * n_nr + c0 + k * mt); },
+          [&](int r) {
+            return Two<T>{c(DCX, r * n_nl + i), c(PX, r * n + i)};
+          },
+          [&](int r, const Two<T>& v, T ct) {
+            const T lt =
+                v.a + ct + poly_lt<DPNL>(lm.Gx, g.nc, nx, r, n_nl, i, c);
+            o[PX][r * n + i] = v.b - gamma * lt;
+          });
+      child_rows(
+          sm + s.RT, ldu, X.k.nmR, n_nr, nu, d, c0, mt,
+          [&](int q, int k) { return c(DRU, q * n_nr + c0 + k * mt); },
+          [&](int r) {
+            return Two<T>{c(DCU, r * n_nl + i), c(PU, r * n_nl + i)};
+          },
+          [&](int r, const Two<T>& v, T ct) {
+            const T lt =
+                v.a + ct + poly_lt<DPNL>(lm.Gu, g.nc, nu, r, n_nl, i, c);
+            o[PU][r * n_nl + i] = v.b - gamma * lt;
+          });
       // (y; s_children; tau_children) through the node's S2 projector
       const T* bb = lm.b + i * lm.sb;
       const T sby = c(DSBY, i);
@@ -683,17 +846,18 @@ __device__ __noinline__ SweepRed<T> step_sweep(
         w[q] = q < nx ? c(DQNX, q * n_lf + l) : T(0);
       }
       T* ql = qbuf + l * ldx;  // the leaves' half
-      rows(nx,
-           [&](int r) {
-             return Two<T>{c(DCXN, r * n_lf + l), c(PX, r * n + i)};
-           },
-           [&](int r, const Two<T>& v) {
-             const T lt = v.a + dot_v(sm + s.QNT + r * ldx, w, ldx) +
-                          poly_lt<DPLF>(lm.GxN, g.ncL, nx, r, n_lf, l, c);
-             const T x1 = v.b - gamma * lt;
-             o[PX][r * n + i] = x1;
-             ql[r] = -x1;
-           });
+      mat_rows_dot(
+          mat_rows(sm + s.QNT, ldx, X.k.nmQN, nx, n_lf, l, true), w, nx, nx,
+          [&](int r) {
+            return Two<T>{c(DCXN, r * n_lf + l), c(PX, r * n + i)};
+          },
+          [&](int r, const Two<T>& v, T t) {
+            const T lt =
+                v.a + t + poly_lt<DPLF>(lm.GxN, g.ncL, nx, r, n_lf, l, c);
+            const T x1 = v.b - gamma * lt;
+            o[PX][r * n + i] = x1;
+            ql[r] = -x1;
+          });
       for (int r = nx; r < ldx; ++r) ql[r] = T(0);
     }
   }
@@ -900,24 +1064,26 @@ __device__ __noinline__ SweepRed<T> step_sweep(
           w[q] = q < nx ? rf(PX, q * n + p) : T(0);
         }
         T acc = T(0);
-        rows(nx, [&](int r) { return c(DQX, r * n_nr + j); },
-             [&](int r, T cv) {
-               const T a = (cv + sigma * dot_v(sm + s.Q + r * ldx, w, ldx)) *
-                           inv;
-               o[DQX][r * n_nr + j] = a;
-               acc += a * a;
-             });
+        mat_rows_dot(
+            mat_rows(sm + s.Q, ldx, X.k.nmQ, nx, n_nr, j, false), w, nx, nx,
+            [&](int r) { return c(DQX, r * n_nr + j); },
+            [&](int r, T cv, T t) {
+              const T a = (cv + sigma * t) * inv;
+              o[DQX][r * n_nr + j] = a;
+              acc += a * a;
+            });
 #pragma unroll
         for (int q = 0; q < kMaxDim; ++q) {
           w[q] = q < nu ? rf(PU, q * n_nl + p) : T(0);
         }
-        rows(nu, [&](int r) { return c(DRU, r * n_nr + j); },
-             [&](int r, T cv) {
-               const T a = (cv + sigma * dot_v(sm + s.R + r * ldu, w, ldu)) *
-                           inv;
-               o[DRU][r * n_nr + j] = a;
-               acc += a * a;
-             });
+        mat_rows_dot(
+            mat_rows(sm + s.R, ldu, X.k.nmR, nu, n_nr, j, false), w, nu, nu,
+            [&](int r) { return c(DRU, r * n_nr + j); },
+            [&](int r, T cv, T t) {
+              const T a = (cv + sigma * t) * inv;
+              o[DRU][r * n_nr + j] = a;
+              acc += a * a;
+            });
         const T ht = T(0.5) * rf(PTAU, j);
         const T t5 = (c(DT5, j) + sigma * ht) * inv - T(0.5);
         const T t6 = (c(DT6, j) + sigma * ht) * inv + T(0.5);
@@ -999,13 +1165,14 @@ __device__ __noinline__ SweepRed<T> step_sweep(
           w[q] = q < nx ? rf(PX, q * n + nd) : T(0);
         }
         T acc = T(0);
-        rows(nx, [&](int r) { return c(DQNX, r * n_lf + l); },
-             [&](int r, T cv) {
-               const T a = (cv + sigma * dot_v(sm + s.QN + r * ldx, w, ldx)) *
-                           inv;
-               o[DQNX][r * n_lf + l] = a;
-               acc += a * a;
-             });
+        mat_rows_dot(
+            mat_rows(sm + s.QN, ldx, X.k.nmQN, nx, n_lf, l, false), w, nx, nx,
+            [&](int r) { return c(DQNX, r * n_lf + l); },
+            [&](int r, T cv, T t) {
+              const T a = (cv + sigma * t) * inv;
+              o[DQNX][r * n_lf + l] = a;
+              acc += a * a;
+            });
         const T hs = T(0.5) * rf(PS, nd);
         const T s12 = (c(DS12, l) + sigma * hs) * inv - T(0.5);
         const T s13 = (c(DS13, l) + sigma * hs) * inv + T(0.5);
@@ -1038,17 +1205,20 @@ __device__ __noinline__ SweepRed<T> step_sweep(
     }
   }
   __syncthreads();
+  SweepRed<T> out{T(0), T(0), T(0), T(0), T(0), T(0)};
+  if (!DIR && !metric) return out;
 
   // ---- M r (and M d) per node, both in one traversal ----
   const LaneRes<T, LaneIn<T, DIR>> res{c, &ol};
   T red[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
   for (int nd = tid; nd < n; nd += kThreads) {
-    metric_node(X, sm, nd, res, res, red[0], red[1], red[2]);
+    metric_node(X, sm, nd, res, res, mr, red[0], red[1], red[2]);
     if constexpr (DIR) {
-      metric_node(X, sm, nd, LaneAt<T>{&dl}, res, red[3], red[4], red[5]);
+      metric_node(X, sm, nd, LaneAt<T>{&dl}, res,
+                  static_cast<const Lane<T>*>(nullptr), red[3], red[4],
+                  red[5]);
     }
   }
-  SweepRed<T> out{T(0), T(0), T(0), T(0), T(0), T(0)};
   T* sh = sm + s.work;
   if constexpr (DIR) {
     // sums first: dot, rho; then the four maxima
@@ -1063,6 +1233,41 @@ __device__ __noinline__ SweepRed<T> step_sweep(
     out.nv = v[2];
   }
   return out;
+}
+
+// Launches ``kernel`` on ``grid`` blocks with the planned dynamic shared
+// memory of P.x.s.  Every launch lifts the kernel's limit above 48 KB: the
+// attribute belongs to the current device, and the call is cheap.
+template <class K, class Params>
+int launch_kernel(K kernel, const Params& P, int grid, void* stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (grid == 0) return 0;
+  kernel<<<grid, kThreads, P.x.s.bytes, static_cast<cudaStream_t>(stream)>>>(
+      P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The node body's shared-memory plan for dims and values of T, into out[4]:
+// {bytes, costates in shared memory, Riccati groups, costate values per
+// lane}; -1 entries and an error when the problem is outside the body's
+// class or no layout fits.
+template <typename T>
+int node_plan(const int* dims, int* out) {
+  SweepConsts<T> k;
+  void* none[kConstPtrs + 4] = {};
+  StepSmem s;
+  if (!make_consts(k, none, dims, 1.0, 1.0) || !node_fits(k.g) ||
+      !plan_smem(s, k.g, dims, static_cast<int>(sizeof(T)))) {
+    out[0] = out[1] = out[2] = out[3] = -1;
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  out[0] = s.bytes;
+  out[1] = s.q_shared;
+  out[2] = s.cmax;
+  out[3] = s.qsize;
+  return 0;
 }
 
 }  // namespace spock

@@ -1,7 +1,10 @@
-// The body of one Chambolle-Pock sweep of one lane, run by one 512-thread
-// block: the device function behind cp_sweep.cu (kernels cp_sweep_fused,
-// cp_sweep_metric_fused, candidate_sweep_fused) and the two sweeps of each
-// SuperMann step in sp_step.cu.
+// The element-per-thread body of one Chambolle-Pock sweep of one lane, run
+// by one 512-thread block: the device function behind cp_sweep.cu's kernels
+// (cp_sweep_fused, cp_sweep_metric_fused, candidate_sweep_fused) for the
+// problems the node body (step_body.cuh) does not take, those with nx, nu or
+// polytope rows above 32.  The node body runs every other problem.  This file
+// also holds what both bodies share: the sweep's constants, the clip and
+// cone helpers and the block reductions.
 //
 // What sweep_lane computes for its lane, at (w, u) = (z, v) or, with
 // WITH_DIRECTION, at (w, u) = (z, v) + tau (dz, dv):
@@ -22,13 +25,15 @@
 // __syncthreads() between dependent phases: the backward Riccati sweep
 // depends stage on stage, and each stage is four dependent steps.  Inside a
 // phase the threads stride over the (row, node) elements of a block of the
-// lane, so neighbouring threads touch neighbouring addresses.  A lane's
-// working set (~0.5 MB) does not fit in shared memory, so the intermediates
-// live in device memory: the z-outputs first hold w1 and are projected in
-// place, the dual outputs hold the prox argument before the cone projections,
-// and four scratch arrays (allocated by the wrapper) hold the costates and
-// the feedforward terms.  Per-lane reductions are block reductions in shared
-// memory, in a fixed order: no atomics, so the results are deterministic.
+// lane, so neighbouring threads touch neighbouring addresses; every element
+// of L or L' computes its own row dot product (L_at, LT_at of
+// sweep_common.cuh), so a column of an input is read once per output row.
+// The intermediates live in device memory: the z-outputs first hold w1 and
+// are projected in place, the dual outputs hold the prox argument before the
+// cone projections, and four scratch arrays (allocated by the wrapper) hold
+// the costates and the feedforward terms.  Per-lane reductions are block
+// reductions in shared memory, in a fixed order: no atomics, so the results
+// are deterministic.
 
 #pragma once
 
@@ -73,6 +78,12 @@ struct SweepConsts {
   const T* phi;
   const T* pNlo;  // [ncL] of the leaf rows
   const T* pNhi;
+  // node-minor copies [rows, cols, nodes] of per-node sqrtQ, sqrtR, sqrtQN
+  // (the node body's; null when the matrix is uniform)
+  const T* nmQ;
+  const T* nmR;
+  const T* nmQN;
+  // the element body's scratch
   T* gq;      // [B, nx, n] costates
   T* gw;      // [B, nu, mmax] u - sum_k B_k' q_k of one stage
   T* gdv;     // [B, nu, n_nl] feedforward terms
@@ -88,9 +99,13 @@ struct SweepRed {
   T rho, ndz, ndv;  // <r, M d>, |M d_z|_inf, |M d_v|_inf (WITH_DIRECTION)
 };
 
+// The number of constant pointers make_consts reads before the scratch.
+constexpr int kConstPtrs = kLMatPtrs + 17;
+
 // Fills the constants from the host pointer array p (in the order sqrtQ,
 // sqrtR, sqrtQN, b, Gx, Gu, GxN, ker_proj, K, Rtinv, ABK, PB, B, x_min,
-// x_max, u_min, u_max, p_lo, p_hi, pN_lo, pN_hi, gq, gw, gdv, ginner) and
+// x_max, u_min, u_max, p_lo, p_hi, pN_lo, pN_hi, the node-minor sqrtQ,
+// sqrtR and sqrtQN, then the element body's scratch gq, gw, gdv, ginner) and
 // dims (the kDims leading entries of sweep_common.cuh, then nseg and nseg
 // (kind, lo, hi) triples); returns false on sizes the kernels do not take.
 template <typename T>
@@ -117,10 +132,13 @@ bool make_consts(SweepConsts<T>& S, void* const* p, const int* dims,
   S.phi = static_cast<const T*>(p[11]);
   S.pNlo = static_cast<const T*>(p[12]);
   S.pNhi = static_cast<const T*>(p[13]);
-  S.gq = static_cast<T*>(p[14]);
-  S.gw = static_cast<T*>(p[15]);
-  S.gdv = static_cast<T*>(p[16]);
-  S.ginner = static_cast<T*>(p[17]);
+  S.nmQ = dims[DIM_PN_Q] ? static_cast<const T*>(p[14]) : nullptr;
+  S.nmR = dims[DIM_PN_R] ? static_cast<const T*>(p[15]) : nullptr;
+  S.nmQN = dims[DIM_PN_QN] ? static_cast<const T*>(p[16]) : nullptr;
+  S.gq = static_cast<T*>(p[17]);
+  S.gw = static_cast<T*>(p[18]);
+  S.gdv = static_cast<T*>(p[19]);
+  S.ginner = static_cast<T*>(p[20]);
   S.segs.n = nseg;
   for (int s = 0; s < nseg; ++s) {
     S.segs.kind[s] = dims[kDims + 1 + 3 * s];

@@ -62,7 +62,6 @@ N_OC = 16
 # M r at (z, v), the Anderson weights, the cache flag; slot 7 is zero
 KP_RN, KP_NMZ, KP_NMV, KP_G0, KP_G1, KP_G2, KP_CACHED = range(7)
 N_KEEP = 8
-MAX_DIM = 32  # kMaxDim of csrc/step_body.cuh
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_void_p]
@@ -90,7 +89,8 @@ def supported(meta: ProblemMeta, data: ProblemData) -> bool:
     return (sweep_kernels.supported(meta, data)
             and all(a.shape[0] == 1 for a in (data.sqrtQ, data.sqrtR,
                                               data.sqrtQN))
-            and max(meta.nx, meta.nu, meta.nc_nl, meta.nc_lf) <= MAX_DIM)
+            and max(meta.nx, meta.nu, meta.nc_nl, meta.nc_lf)
+            <= sweep_kernels.MAX_DIM)
 
 
 def _decide(pair, zbar, d, wbar, tau, act, rn, nmz, nmv, r_safe, q_pow,

@@ -17,6 +17,14 @@ Both kernels are bound by memory: they read each lane's iterate and write
 their outputs once (126 MB per plain sweep at the headline size, 38 us at
 3.35 TB/s).
 
+A sweep runs one of two bodies of ``csrc/cp_sweep.cu``, chosen here by the
+problem's class (``sweep_body``) and passed to the kernel: the node body of
+``csrc/step_body.cuh`` (a node per thread) when nx, nu and the polytope rows
+of a node are at most 32 and its shared-memory plan fits (``node_plan``,
+which mirrors the kernel's own), the element body of ``csrc/sweep_body.cuh``
+otherwise.  The node body reads per-node cost matrices from node-minor
+copies ([rows, cols, nodes]) that ``_consts`` makes once per problem.
+
 A pair is 19 blocks in the kernels' order (``BLOCKS``: the Primal fields,
 ``DUAL_BLOCKS``, then the polytope rows ``pnl`` and ``plf``); an absent
 polytope block is None here and a null pointer in the kernel.
@@ -39,11 +47,20 @@ from ..zv import DUAL_BLOCKS, Dual, Primal
 from . import _build, cuda_kernels
 from .linop import metric_apply
 
+# launches of each wrapper's kernel, and of csrc/cp_sweep.cu by body
 LAUNCHES = {"cp_sweep_fused": 0, "cp_sweep_metric_fused": 0,
-            "candidate_sweep_fused": 0, "metric_apply_fused": 0}
+            "candidate_sweep_fused": 0, "metric_apply_fused": 0,
+            "cp_sweep_node_body": 0, "cp_sweep_element_body": 0}
 
 MAX_STAGES = 24  # kMaxStages of csrc/sweep_common.cuh
 MAX_KER = 32  # kMaxKer of csrc/sweep_body.cuh: ny + 2 d
+MAX_DIM = 32  # kMaxDim of csrc/step_body.cuh: nx, nu, polytope rows
+NODE, ELEMENT = "node", "element"
+BODY_CODE = {ELEMENT: 0, NODE: 1}  # csrc/cp_sweep.cu's body codes
+THREADS = 512  # kThreads of csrc/sweep_body.cuh
+# csrc/step_body.cuh: values of one block reduction, dynamic shared memory
+# per block, Riccati node groups at most
+MAX_RED, SMEM_LIMIT, MAX_GROUPS = 9, 232448 - 4096, THREADS // 4
 PRIMAL_BLOCKS = ("x", "u", "s", "tau", "y")
 DUAL_ALL = DUAL_BLOCKS + ("pnl", "plf")
 BLOCKS = PRIMAL_BLOCKS + DUAL_ALL  # the 19 blocks of csrc/sweep_common.cuh
@@ -51,7 +68,7 @@ BLOCKS = PRIMAL_BLOCKS + DUAL_ALL  # the 19 blocks of csrc/sweep_common.cuh
 _SIGNATURES = {
     "cp_sweep": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_double,
                  ctypes.c_double, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_void_p],
+                 ctypes.c_int, ctypes.c_void_p],
     "metric_apply": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_double,
                      ctypes.c_double, ctypes.c_int, ctypes.c_void_p],
 }
@@ -73,6 +90,59 @@ def supported(meta: ProblemMeta, data: ProblemData) -> bool:
             and data.sqrtR.shape[0] in (1, t.n - 1)
             and data.sqrtQN.shape[0] in (1, t.n_leaf)
             and t.N <= MAX_STAGES and meta.ny + 2 * t.d <= MAX_KER)
+
+
+def _pad4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def node_plan(meta: ProblemMeta, data: ProblemData, itemsize: int):
+    """The node body's shared-memory plan for values of ``itemsize`` bytes,
+    as csrc/step_body.cuh's ``node_fits`` and ``plan_smem`` make it:
+    {bytes, costates_in_shared_memory, riccati_groups, costate_values} per
+    block (costate_values per lane), or None where the node body does not
+    take the problem.  Uniform matrices are staged, per-node ones are not;
+    the costates stay in shared memory when they fit, with as many Riccati
+    node groups as fit."""
+    t = meta.tree
+    nx, nu, d = meta.nx, meta.nu, t.d
+    if max(nx, nu, meta.nc_nl, meta.nc_lf) > MAX_DIM:
+        return None
+    ldx, ldu = _pad4(nx), _pad4(nu)
+    mker = meta.ny + 2 * d
+    uniform = [a.shape[0] == 1 for a in (data.sqrtQ, data.sqrtR,
+                                         data.sqrtQN, data.ker_proj)]
+    staged = ([nx * ldx] * 2 * uniform[0] + [nu * ldu] * 2 * uniform[1]
+              + [nx * ldx] * 2 * uniform[2]
+              + [d * nu * ldx, d * nx * ldu, mker * _pad4(mker) * uniform[3]])
+    o = sum(_pad4(n) for n in staged)
+    backward = nu * ldu + d * nx * ldu + d * nx * ldx + nx * ldu
+    forward = nu * ldx + d * nx * ldx
+    o = _pad4(o + max(backward, forward))
+    xch_node = 3 * ldu + d * ldx
+    qsize = (t.n_leaf + t.stage_size(t.N - 2)) * ldx
+    red = MAX_RED * THREADS
+    for q_shared in (True, False):
+        cmax = MAX_GROUPS
+        while cmax >= (16 if q_shared else 1):
+            work = qsize if q_shared and qsize > red else red
+            total = o + cmax * xch_node + work
+            if total * itemsize <= SMEM_LIMIT:
+                return dict(bytes=total * itemsize,
+                            costates_in_shared_memory=q_shared,
+                            riccati_groups=cmax, costate_values=qsize)
+            cmax //= 2
+    return None
+
+
+def sweep_body(meta: ProblemMeta, data: ProblemData, dtype) -> str:
+    """The body of csrc/cp_sweep.cu that runs the problem, by its class:
+    ``NODE`` where ``node_plan`` fits, ``ELEMENT`` otherwise.  Raises on a
+    problem outside the sweep kernels' class."""
+    if not supported(meta, data):
+        raise ValueError("sweep kernels: unsupported problem class")
+    itemsize = torch.finfo(dtype).bits // 8
+    return ELEMENT if node_plan(meta, data, itemsize) is None else NODE
 
 
 def pair_shapes(meta: ProblemMeta, B: int) -> list:
@@ -138,6 +208,13 @@ def _device(name, a) -> torch.device:
 
 
 N_LMATS = 7  # the first constants, the matrices of L (make_lmats's order)
+N_CONSTS = 21  # the constants before the node-minor copies
+
+
+def node_minor(a):
+    """The node-minor copy [rows, cols, nodes] of per-node matrices a
+    [nodes, rows, cols]; None for a uniform a (one node)."""
+    return None if a.shape[0] == 1 else a.permute(1, 2, 0).contiguous()
 
 
 def _consts(data: ProblemData, meta: ProblemMeta) -> list:
@@ -145,7 +222,8 @@ def _consts(data: ProblemData, meta: ProblemMeta) -> list:
     make_consts order: sqrtQ, sqrtR, sqrtQN and b (whole, with their node
     dimension), the polytope rows Gx, Gu and GxN, ker_proj, the stage stacks
     of K, Rtinv, ABK and PB, B, the box bounds and the polytope bounds
-    (None where the problem has no polytope)."""
+    (None where the problem has no polytope), then the node-minor copies of
+    sqrtQ, sqrtR and sqrtQN (None where uniform), made once per ``data``."""
     hit = _CONSTS.get(id(data))
     if hit is not None and hit[0] is data:
         return hit[1]
@@ -159,6 +237,7 @@ def _consts(data: ProblemData, meta: ProblemMeta) -> list:
               data.B, data.x_min, data.x_max, data.u_min, data.u_max,
               data.p_lo, data.p_hi, data.pN_lo, data.pN_hi]
     consts = [None if a is None else a.contiguous() for a in consts]
+    consts += [node_minor(a) for a in (data.sqrtQ, data.sqrtR, data.sqrtQN)]
     if len(_CONSTS) >= 8:
         _CONSTS.clear()
     _CONSTS[id(data)] = (data, consts)
@@ -218,7 +297,8 @@ def _inputs(name, data, meta, z, v):
 
 def _launch(name, lib, dtype, device, ptr, dims, *args) -> None:
     """Launch ``lib`` with the host array of device pointers ``ptr`` (None
-    for unused ones) and the int array ``dims``; raise on a CUDA error."""
+    for unused ones) and the int array ``dims``; raise on a CUDA error (a
+    request the kernel does not take is cudaErrorInvalidValue, 1)."""
     ptrs = (ctypes.c_void_p * len(ptr))(*ptr)
     rc = _call(_fn(lib, dtype),
                (ctypes.addressof(ptrs), ctypes.addressof(dims), *args),
@@ -233,10 +313,31 @@ def _empty(shapes, dtype, device) -> list:
             for s in shapes]
 
 
+def _scratch(body, meta, data, B, dtype, device) -> list:
+    """The four scratch pointers of csrc/cp_sweep.cu for ``body``: the node
+    body's dvec [B, n_nl, ldu] and, where they do not fit in shared memory,
+    costates [B, qsize]; the element body's costates, w, dvec and inner."""
+    t = meta.tree
+
+    def empty(n):
+        return torch.empty((B, n), dtype=dtype, device=device)
+
+    if body == NODE:
+        plan = node_plan(meta, data, torch.finfo(dtype).bits // 8)
+        costates = (None if plan["costates_in_shared_memory"]
+                    else empty(plan["costate_values"]))
+        return [empty(t.n_nonleaf * _pad4(meta.nu)), costates, None, None]
+    mmax = t.stage_size(t.N - 2)
+    return [empty(n) for n in (meta.nx * t.n, meta.nu * mmax,
+                               meta.nu * t.n_nonleaf, t.d * meta.nx * mmax)]
+
+
 def _sweep(name, data, meta, z, v, gamma, sigma, x0, metric, direction=None):
-    """Launch csrc/cp_sweep.cu; returns the output tensors (19 of zbar/vbar,
-    then with ``metric`` 19 of M r and the [6, B] scalar rows)."""
+    """Launch csrc/cp_sweep.cu on the body the problem's class takes;
+    returns the output tensors (19 of zbar/vbar, then with ``metric`` 19 of
+    M r and the [6, B] scalar rows)."""
     device, dtype, B, shapes, ins, consts = _inputs(name, data, meta, z, v)
+    body = sweep_body(meta, data, dtype)
     _check(name, [x0], [(B, meta.nx)], device, dtype)
     dirs, tau = [None] * len(BLOCKS), None
     if direction is not None:
@@ -246,19 +347,16 @@ def _sweep(name, data, meta, z, v, gamma, sigma, x0, metric, direction=None):
         tau = torch.as_tensor(tau, dtype=dtype, device=device)
         tau = tau.expand(B).contiguous() if tau.ndim == 0 else tau
         _check(name, [tau], [(B,)], device, dtype)
-    t = meta.tree
-    mmax = t.stage_size(t.N - 2)
     outs = _empty(shapes, dtype, device)
     mrs = _empty(shapes, dtype, device) if metric else [None] * len(BLOCKS)
     scal = torch.empty((6, B), dtype=dtype, device=device)
-    scratch = [torch.empty((B, n), dtype=dtype, device=device) for n in (
-        meta.nx * t.n, meta.nu * mmax, meta.nu * t.n_nonleaf,
-        t.d * meta.nx * mmax)]
+    scratch = _scratch(body, meta, data, B, dtype, device)
     ptr = [_ptr(a) for a in ins + dirs + outs + mrs + list(scal) + [x0, tau]
            + consts + scratch]
     _launch(name, "cp_sweep", dtype, device, ptr, _dims(data, meta, True),
             float(gamma), float(sigma), int(metric),
-            int(direction is not None), B)
+            int(direction is not None), BODY_CODE[body], B)
+    LAUNCHES[f"cp_sweep_{body}_body"] += 1
     return outs, mrs, scal
 
 
