@@ -19,10 +19,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    path (B = 128 lanes of server_heat N=10 nx=nu=20 d=2, float32), and both
    timed with CUDA events: prox_h_conj, cp_sweep_fused,
    cp_sweep_metric_fused, candidate_sweep_fused (the three on the node body
-   of csrc/cp_sweep.cu) and metric_apply_fused on random inputs; the
-   element body of csrc/cp_sweep.cu (candidate_sweep_fused) on server_heat
-   N=4 at nx=nu=33, above the node body's 32, driven by a Solver on the
-   sweep kernels; after 4a, the step kernels of csrc/sp_step.cu (the
+   of csrc/cp_sweep.cu) and metric_apply_fused (node body, also at the
+   Broyden Solver's B = 4) on random inputs; the element bodies of
+   csrc/cp_sweep.cu (candidate_sweep_fused) and csrc/metric_apply.cu on
+   server_heat N=4 at nx=nu=33, above the node body's 32, driven by two
+   Solvers on the sweep kernels (Anderson, Broyden); after 4a, the step
+   kernels of csrc/sp_step.cu (the
    function of both TPU step kernels) on a real carry, one fused iteration
    into a solve from the main path's final state, held in float64 and
    timed in float32: sp_step_fused at tau = 1 with the carry's cache
@@ -45,8 +47,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
       prox_h* phase is the prox_h_conj kernel;
    d. ``Solver(algorithm="cp")``, one cp_sweep_fused launch per iteration,
       and e. ``Solver`` with Broyden directions, one metric_apply_fused
-      launch per iteration, both warm-started from 4 lanes of the main
-      path's farm at its final states;
+      launch per iteration (all on the node body), both warm-started from
+      4 lanes of the main path's farm at its final states;
 5. the solution: the float32 root controls of a cold 1-step farm on the
    main path from the warm phase's states against the port's own float64
    solve on the CPU (composed iteration, tol 1e-5) for 2 lanes, and the
@@ -324,11 +326,11 @@ def wide_specs(spec):
 
 
 def kernel_row(name, source, replaces, max_err, kernel_ms, plain_ms,
-               nbytes, ops, card):
+               nbytes, ops, card, batch=B):
     """One row of the ``kernels`` line; its launches are filled in from the
     path that runs it."""
     bound_ms, bound_by = bound(nbytes, ops)
-    print(f"[kernel] {name} B={B} max_abs_err={max_err:.3e} kernel "
+    print(f"[kernel] {name} B={batch} max_abs_err={max_err:.3e} kernel "
           f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
           f"ms ({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP) [{card}]",
           flush=True)
@@ -401,13 +403,13 @@ def cost_bytes(data):
 
 
 # passes of L or L' over the cost matrices per lane, by sweep kernel: L' and
-# L in the sweep, both again for M r, both again for M d
+# L in the sweep, both again for M r, both again for M d (M alone: 2)
 COST_PASSES = {"cp_sweep_fused": 2, "cp_sweep_metric_fused": 4,
                "candidate_sweep_fused": 6}
 
 
 def sweep_kernel_checks(data, meta, card, tag=None, names=None):
-    """Phase 3 (7a with ``tag``): the four whole-sweep kernels (or those in
+    """Phase 3 (7a with ``tag``): the three whole-sweep kernels (or those in
     ``names``) against their plain versions; the rows are named
     ``name[tag]``.  With per-node costs, prints the cost-matrix bytes a
     launch reads from the L2 and their rate."""
@@ -445,10 +447,6 @@ def sweep_kernel_checks(data, meta, card, tag=None, names=None):
             lambda: common.candidate_sweep_ref(data, meta, z, v, dz, dv, tau,
                                                g, s, x0),
             [z, v, dz, dv, tau, x0]),
-        "metric_apply_fused": (
-            lambda: sweep_kernels.metric_apply_fused(data, meta, z, v, g, s),
-            lambda: linop.metric_apply(data, meta, z, v, g, s),
-            [z, v]),
     }
     # the kernels read either a cost matrix or its node-minor copy: the
     # constants without the copies
@@ -477,24 +475,72 @@ def sweep_kernel_checks(data, meta, card, tag=None, names=None):
                     (a.abs() * b.abs()).flatten(1).sum(1)
                     for a, b in zip(leaves(r), leaves(md))).max())
         max_err = hold(row_name(name, tag), got, ref, scales)
-        used = (consts[:sweep_kernels.N_LMATS] if name == "metric_apply_fused"
-                else consts)
-        nbytes = nbytes_of(leaves(tuple(inputs)) + leaves(got) + used)
+        nbytes = nbytes_of(leaves(tuple(inputs)) + leaves(got) + consts)
         ops = B * sweep_ops(meta, name != "cp_sweep_fused",
-                            name == "candidate_sweep_fused",
-                            sweep=name != "metric_apply_fused")
+                            name == "candidate_sweep_fused")
         source, replaces = SWEEP_KERNELS[name]
         rows.append(kernel_row(row_name(name, tag), source, replaces,
                                max_err, time_ms(kernel), time_ms(plain),
                                nbytes, ops, card))
-        if name in COST_PASSES:
-            per_lane = COST_PASSES[name] * cost_bytes(data)
-            print(f"[kernel] {row_name(name, tag)}: {body} body"
-                  + (f"; per-node cost matrices read {per_lane / 1e6:.1f} MB "
-                     f"a lane, {B * per_lane / 1e9:.2f} GB a launch, "
-                     f"{B * per_lane / rows[-1]['ms'] / 1e6:.0f} GB/s"
-                     if per_lane else "") + f" [{card}]", flush=True)
+        report_cost_reads(row_name(name, tag), body, COST_PASSES[name],
+                          data, B, rows[-1]["ms"], card)
     return rows
+
+
+def report_cost_reads(name, body, passes, data, batch, ms, card):
+    """The body of a launch and, with per-node costs, the cost-matrix bytes
+    its L and L' passes read from the L2 and their rate."""
+    per_lane = passes * cost_bytes(data)
+    print(f"[kernel] {name}: {body} body"
+          + (f"; per-node cost matrices read {per_lane / 1e6:.1f} MB a lane, "
+             f"{batch * per_lane / 1e9:.2f} GB a launch, "
+             f"{batch * per_lane / ms / 1e6:.0f} GB/s" if per_lane else "")
+          + f" [{card}]", flush=True)
+
+
+def metric_kernel_check(data, meta, card, batch=B, tag=None):
+    """Phase 3 (7a with ``tag``): metric_apply_fused against
+    linop.metric_apply at ``batch`` lanes on random inputs, one launch on the
+    body the class takes, timed.  Returns the row (named
+    ``metric_apply_fused[tag]``) and the body and grid."""
+    from spock_tpu_torch.ops import linop, sweep_kernels
+    from spock_tpu_torch.problem import step_size
+    from spock_tpu_torch.zv import leaves
+
+    name = row_name("metric_apply_fused", tag)
+    rng = np.random.default_rng(1)
+    z, v = sweep_kernels.new_pair(meta, batch, lambda s: torch.tensor(
+        rng.standard_normal(s), dtype=data.dtype, device=data.device))
+    g = step_size(data)
+
+    def kernel():
+        return sweep_kernels.metric_apply_fused(data, meta, z, v, g, g)
+
+    def plain():
+        return linop.metric_apply(data, meta, z, v, g, g)
+
+    body = sweep_kernels.metric_body(meta, data, data.dtype)
+    before = dict(sweep_kernels.LAUNCHES)
+    got = kernel()
+    torch.cuda.synchronize()
+    counts = {k: sweep_kernels.LAUNCHES[k] - before[k]
+              for k in before if k.startswith("metric_apply")}
+    check(counts["metric_apply_fused"] == 1, f"{name}: launches {counts}")
+    check_metric_body(counts, name, body)
+    max_err = hold(name, got, plain())
+    consts = sweep_kernels._consts(data, meta)[:sweep_kernels.N_LMATS]
+    nbytes = nbytes_of(leaves((z, v)) + leaves(got) + consts)
+    ops = batch * sweep_ops(meta, True, False, sweep=False)
+    source, replaces = SWEEP_KERNELS["metric_apply_fused"]
+    row = kernel_row(name, source, replaces, max_err, time_ms(kernel),
+                     time_ms(plain), nbytes, ops, card, batch=batch)
+    report_cost_reads(name, body, 2, data, batch, row["ms"], card)
+    extra = dict(body=body, batch=batch)
+    if body == "node":
+        extra["grid"] = sweep_kernels.metric_grid(meta, batch)
+        print(f"[kernel] {name} B={batch}: grid {extra['grid']} [{card}]",
+              flush=True)
+    return row, extra
 
 
 def step_carry(data, meta, res2, opts):
@@ -788,14 +834,29 @@ SWEEP_LAUNCHES = ("cp_sweep_fused", "cp_sweep_metric_fused",
                   "candidate_sweep_fused")
 
 
+def check_metric_body(counts, label, body):
+    """A solve whose metric kernel ran ``body`` only, at least once."""
+    other = "element" if body == "node" else "node"
+    check(counts["metric_apply_fused"] >= 1
+          and counts[f"metric_apply_{body}_body"]
+          == counts["metric_apply_fused"]
+          and counts[f"metric_apply_{other}_body"] == 0,
+          f"{label}: metric_apply_fused launched "
+          f"{counts['metric_apply_fused']} times, by body "
+          f"{counts['metric_apply_node_body']} node, "
+          f"{counts['metric_apply_element_body']} element")
+
+
 def element_body_check(card, device):
-    """Phase 3, the element body: candidate_sweep_fused against its plain
-    version on server_heat N=WIDE_N at nx = nu = WIDE_NX (above the node
-    body's 32), then a 4-lane Solver on that problem, which runs SuperMann
-    on the sweep kernels (the step kernels stop at 32 states too), with the
-    launch counts set to 0 just before and read just after.  Returns the
-    row (its launches from the solve) and the solve's numbers."""
-    from spock_tpu_torch import build
+    """Phase 3, the element bodies: candidate_sweep_fused and
+    metric_apply_fused against their plain versions on server_heat
+    N=WIDE_N at nx = nu = WIDE_NX (above the node body's 32), then two cold
+    4-lane Solvers on that problem, which run SuperMann on the sweep kernels
+    (the step kernels stop at 32 states too), with Anderson and with Broyden
+    directions, each with the launch counts set to 0 just before and read
+    just after.  Returns the two rows (their launches from the solves) and
+    the solves' numbers."""
+    from spock_tpu_torch import SuperMannOpts, build
     from spock_tpu_torch.algorithms import supermann as sp
     from spock_tpu_torch.models import server_heat
     from spock_tpu_torch.ops import sweep_kernels
@@ -804,37 +865,49 @@ def element_body_check(card, device):
     spec = server_heat.make_spec(N=WIDE_N, nx=WIDE_NX, d=D)
     data, meta = build(spec, dtype=torch.float32, device=device)
     check(sweep_kernels.sweep_body(meta, data, data.dtype) == "element"
+          and sweep_kernels.metric_body(meta, data, data.dtype) == "element"
           and not sp.use_fused_step(data, meta, sp.SuperMannOpts()),
-          f"nx={WIDE_NX}: not on the element body of the sweep kernels")
+          f"nx={WIDE_NX}: not on the element bodies of the sweep kernels")
     tag = f"nx{WIDE_NX}"
     row, = sweep_kernel_checks(data, meta, card, tag=tag,
                                names=("candidate_sweep_fused",))
+    mrow, _ = metric_kernel_check(data, meta, card, tag=tag)
     rng = np.random.default_rng(2)
     x0 = torch.tensor(rng.uniform(-0.6, 0.6, (SOLVE_LANES, meta.nx)),
                       dtype=torch.float32, device=device)
-    reset_counts()
-    t0 = time.perf_counter()
-    res = Solver(data, meta, max_iter=ELEMENT_CAP, device=device).solve(
-        x0, tol=TOL)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    counts = launch_counts()
-    iters = res.iterations.cpu().numpy()
-    check(bool(res.converged.all()), f"{tag} solve did not converge: "
-          f"iterations {iters.tolist()}")
-    sweeps = sum(counts[k] for k in SWEEP_LAUNCHES)
-    check(counts["candidate_sweep_fused"] >= int(iters.max())
-          and counts["cp_sweep_element_body"] == sweeps
-          and counts["cp_sweep_node_body"] == 0,
-          f"{tag} solve: launches {counts}")
-    row["launches"] = counts["candidate_sweep_fused"]
-    print(f"[{tag} solve] {SOLVE_LANES} lanes cold: iterations "
-          f"{iters.tolist()} in {wall_s:.2f} s; sweep launches by body: "
-          f"element {counts['cp_sweep_element_body']}, node "
-          f"{counts['cp_sweep_node_body']} [{card}]", flush=True)
-    return row, dict(iterations=iters.tolist(), wall_s=wall_s,
-                     launches=counts)
+    out = {}
+    for label, opts in (("anderson", SuperMannOpts()),
+                        ("broyden", SuperMannOpts(direction="broyden"))):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = Solver(data, meta, max_iter=ELEMENT_CAP, device=device,
+                     supermann=opts).solve(x0, tol=TOL)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = launch_counts()
+        iters = res.iterations.cpu().numpy()
+        check(bool(res.converged.all()), f"{tag} {label} solve did not "
+              f"converge: iterations {iters.tolist()}")
+        sweeps = sum(counts[k] for k in SWEEP_LAUNCHES)
+        check(counts["candidate_sweep_fused"] >= int(iters.max())
+              and counts["cp_sweep_element_body"] == sweeps
+              and counts["cp_sweep_node_body"] == 0,
+              f"{tag} {label} solve: launches {counts}")
+        if label == "broyden":
+            check_metric_body(counts, f"{tag} broyden solve", "element")
+            mrow["launches"] = counts["metric_apply_fused"]
+        else:
+            row["launches"] = counts["candidate_sweep_fused"]
+        print(f"[{tag} {label} solve] {SOLVE_LANES} lanes cold: iterations "
+              f"{iters.tolist()} in {wall_s:.2f} s; sweep launches by body: "
+              f"element {counts['cp_sweep_element_body']}, node "
+              f"{counts['cp_sweep_node_body']}; metric launches by body: "
+              f"element {counts['metric_apply_element_body']}, node "
+              f"{counts['metric_apply_node_body']} [{card}]", flush=True)
+        out[label] = dict(iterations=iters.tolist(), wall_s=wall_s,
+                          launches=counts)
+    return [row, mrow], out
 
 
 def check_step_farm(counts, farm_iters, label):
@@ -1139,6 +1212,8 @@ def wide_checks(w, ws, card, device, opts):
     # 7a. kernels #2-#5 on all three widenings at once
     prow = {r["name"]: r for r in sweep_kernel_checks(
         w.data_p, w.meta_p, card, tag=PNCOST)}
+    mrow, mextra = metric_kernel_check(w.data_p, w.meta_p, card, tag=PNCOST)
+    prow[mrow["name"]] = mrow
     for name in ("cp_sweep_metric_fused", "candidate_sweep_fused"):
         prow[row_name(name, PNCOST)]["launches"] = w.pnums["launches"][name]
 
@@ -1159,8 +1234,9 @@ def wide_checks(w, ws, card, device, opts):
         w.data_p, w.meta_p, w.res2_p, card, f"broyden solve [{PNCOST}]",
         "metric_apply_fused", max_iter=BROYDEN_CAP,
         supermann=SuperMannOpts(direction="broyden"))
-    prow[row_name("metric_apply_fused", PNCOST)]["launches"] = (
-        broyden["launches"]["metric_apply_fused"])
+    check_metric_body(broyden["launches"], f"broyden solve [{PNCOST}]",
+                      "node")
+    mrow["launches"] = broyden["launches"]["metric_apply_fused"]
 
     # 7e. the solutions; the _pncost reference on the card, after every
     # timed phase, while the _navar ones finish on the host
@@ -1182,6 +1258,7 @@ def wide_checks(w, ws, card, device, opts):
           f"[{card}]", flush=True)
     return dict(rows=list(prow.values()) + nrows, navar_farm=w.nnums,
                 navar_step=nextra, navar_solution=nsol, pncost_farm=w.pnums,
+                pncost_metric=mextra,
                 pncost_solution=psol, pncost_cp_solve=cp,
                 pncost_broyden_solve=broyden)
 
@@ -1354,6 +1431,12 @@ def smoke(card, device, pool, built):
         for dt in (torch.float32, torch.float64):
             plan = sweep_kernels.node_plan(m_, d_, torch.finfo(dt).bits // 8)
             plans[f"cp_sweep node body, {label}, {dt}"] = plan
+            mplan = sweep_kernels.metric_plan(m_, d_,
+                                              torch.finfo(dt).bits // 8)
+            plans[f"metric_apply node body, {label}, {dt}"] = mplan
+            print(f"[ptxas] metric_apply node body, {label}, {dt}: "
+                  f"{mplan['bytes']} bytes of dynamic shared memory per "
+                  "block", flush=True)
             print(f"[ptxas] cp_sweep node body, {label}, {dt}: "
                   f"{plan['bytes']} bytes of dynamic shared memory per "
                   f"block, costates in shared memory "
@@ -1363,9 +1446,14 @@ def smoke(card, device, pool, built):
     # ---- 3. the sweep kernels against their plain versions: the node
     # body on the headline, the element body above 32 states ----
     sweep_rows = sweep_kernel_checks(data, meta, card)
+    metric_extra = {}
+    for batch, tag in ((B, None), (SOLVE_LANES, f"B{SOLVE_LANES}")):
+        mrow, metric_extra[f"B{batch}"] = metric_kernel_check(
+            data, meta, card, batch=batch, tag=tag)
+        sweep_rows.append(mrow)
     kernels += sweep_rows
     rows.update({k["name"]: k for k in sweep_rows})
-    element_row, element = element_body_check(card, device)
+    element_rows, element = element_body_check(card, device)
     stamp("phase 3 sweep rows done")
 
     # ---- 4a. the main path: the farm on the fused step ----
@@ -1413,8 +1501,9 @@ def smoke(card, device, pool, built):
     broyden, u_broyden = solver_run(
         data, meta, res2, card, "broyden solve", "metric_apply_fused",
         max_iter=BROYDEN_CAP, supermann=SuperMannOpts(direction="broyden"))
-    rows["metric_apply_fused"]["launches"] = (
-        broyden["launches"]["metric_apply_fused"])
+    check_metric_body(broyden["launches"], "broyden solve", "node")
+    for name in ("metric_apply_fused", f"metric_apply_fused[B{SOLVE_LANES}]"):
+        rows[name]["launches"] = broyden["launches"]["metric_apply_fused"]
 
     # ---- 5. the solution ----
     sol, u_ref = solution_check(data, meta, spec, res2.xs, ws, card, device,
@@ -1431,7 +1520,7 @@ def smoke(card, device, pool, built):
 
     # ---- 7. the wider class: kernel rows, Solvers and solutions ----
     wide = wide_checks(wide_state, ws, card, device, opts)
-    kernels += wide.pop("rows") + [element_row]
+    kernels += wide.pop("rows") + element_rows
     check(all(k["launches"] for k in kernels),
           "a kernel row has no launches on its path")
 
@@ -1440,7 +1529,8 @@ def smoke(card, device, pool, built):
                   fused_step_farm=nums, fused_sweep_farm=snums,
                   composed_farm=cnums, cp_solve=cp, broyden_solve=broyden,
                   controls_max_err=err, profile=prof, wide=wide,
-                  element_body_solve=element, ptxas=ptxas, smem_plans=plans)
+                  element_body_solves=element, ptxas=ptxas, smem_plans=plans,
+                  metric_apply=metric_extra)
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)

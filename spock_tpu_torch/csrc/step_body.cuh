@@ -2,7 +2,8 @@
 // sweep of one lane, with the metric image of its residual and, at a
 // candidate, of the direction, run by one 512-thread block.  The SuperMann
 // step kernels (sp_step.cu) and the CP sweep kernels (cp_sweep.cu, for
-// problems whose nx, nu and polytope rows are at most 32) run it.  It
+// problems whose nx, nu and polytope rows are at most 32) run it; the metric
+// kernel (metric_apply.cu) runs its metric pass, metric_node, alone.  It
 // computes what sweep_body.cuh's sweep_lane computes (costs uniform or per
 // node; risk data uniform or per node; with or without polytope rows), in
 // fewer and cheaper passes:
@@ -101,18 +102,15 @@ inline bool node_fits(const Geo& g) {
          g.ncL <= kMaxDim;
 }
 
-// Plans the shared memory of a block for geometry g, the per-node flags of
-// dims (uniform matrices are staged, per-node ones are not) and values of
-// ``vsize`` bytes; returns false if no layout fits.
-inline bool plan_smem(StepSmem& s, const Geo& g, const int* dims,
-                      int vsize) {
+// Plans the first region of a block's shared memory: the uniform cost
+// matrices and their transposes (sqrtQ, sqrtR, sqrtQN; per-node ones are not
+// staged), rows padded to ldx or ldu values.  Returns its values.
+inline int plan_cost_mats(StepSmem& s, const Geo& g, const int* dims) {
   const int ldx = pad4(g.nx), ldu = pad4(g.nu);
-  const int mker = g.ny + 2 * g.d, ldk = pad4(mker);
   const bool q = dims[DIM_PN_Q] == 0, r = dims[DIM_PN_R] == 0;
-  const bool qn = dims[DIM_PN_QN] == 0, ker = dims[DIM_PN_RISK] == 0;
+  const bool qn = dims[DIM_PN_QN] == 0;
   s.ldx = ldx;
   s.ldu = ldu;
-  s.ldk = ldk;
   int o = 0;
   auto take = [&](int n) {
     const int at = o;
@@ -125,6 +123,34 @@ inline bool plan_smem(StepSmem& s, const Geo& g, const int* dims,
   s.R = take(r ? g.nu * ldu : 0);
   s.QNT = take(qn ? g.nx * ldx : 0);
   s.QN = take(qn ? g.nx * ldx : 0);
+  return o;
+}
+
+// The shared memory of a metric launch (metric_apply.cu): the cost matrices
+// of plan_cost_mats alone, for values of ``vsize`` bytes; the other offsets
+// stay 0.  Returns false where the node body does not take g.
+inline bool metric_plan(StepSmem& s, const Geo& g, const int* dims,
+                        int vsize) {
+  s = StepSmem{};
+  s.bytes = plan_cost_mats(s, g, dims) * vsize;
+  return node_fits(g) && s.bytes <= kSmemLimit;
+}
+
+// Plans the shared memory of a block for geometry g, the per-node flags of
+// dims (uniform matrices are staged, per-node ones are not) and values of
+// ``vsize`` bytes; returns false if no layout fits.
+inline bool plan_smem(StepSmem& s, const Geo& g, const int* dims,
+                      int vsize) {
+  const int mker = g.ny + 2 * g.d, ldk = pad4(mker);
+  const bool ker = dims[DIM_PN_RISK] == 0;
+  s.ldk = ldk;
+  int o = plan_cost_mats(s, g, dims);
+  const int ldx = s.ldx, ldu = s.ldu;
+  auto take = [&](int n) {
+    const int at = o;
+    o += pad4(n);
+    return at;
+  };
   s.Bt = take(g.d * g.nu * ldx);
   s.Bf = take(g.d * g.nx * ldu);
   s.ker = take(ker ? mker * ldk : 0);
@@ -339,17 +365,18 @@ struct StepConsts {
   StepSmem s;
 };
 
-// Stages the matrices that stay for the whole launch; the caller syncs.
+// Stages the uniform cost matrices and their transposes of plan_cost_mats
+// (per-node ones have node-minor copies), thread tid of nthreads; the caller
+// syncs.
 template <typename T>
-__device__ void stage_consts(const StepConsts<T>& X, T* sm) {
+__device__ __forceinline__ void stage_cost_mats(const StepConsts<T>& X, T* sm,
+                                                int tid, int nthreads) {
   const Geo& g = X.k.g;
   const StepSmem& s = X.s;
   const LMats<T>& m = X.k.lm;
-  const int tid = threadIdx.x;
   const int nx = g.nx, nu = g.nu, ldx = s.ldx, ldu = s.ldu;
-  // the uniform cost matrices (per-node ones have node-minor copies)
   const bool q = m.sq == 0, qn = m.sqn == 0;
-  for (int e = tid; e < nx * ldx; e += kThreads) {
+  for (int e = tid; e < nx * ldx; e += nthreads) {
     const int r = e / ldx, c = e % ldx;
     const bool in = c < nx;
     if (q) {
@@ -361,12 +388,22 @@ __device__ void stage_consts(const StepConsts<T>& X, T* sm) {
       sm[s.QNT + e] = in ? m.sqrtQN[c * nx + r] : T(0);
     }
   }
-  for (int e = tid; e < nu * ldu && m.sr == 0; e += kThreads) {
+  for (int e = tid; e < nu * ldu && m.sr == 0; e += nthreads) {
     const int r = e / ldu, c = e % ldu;
     const bool in = c < nu;
     sm[s.R + e] = in ? m.sqrtR[r * nu + c] : T(0);
     sm[s.RT + e] = in ? m.sqrtR[c * nu + r] : T(0);
   }
+}
+
+// Stages the matrices that stay for the whole launch; the caller syncs.
+template <typename T>
+__device__ void stage_consts(const StepConsts<T>& X, T* sm) {
+  const Geo& g = X.k.g;
+  const StepSmem& s = X.s;
+  const int tid = threadIdx.x;
+  const int nx = g.nx, nu = g.nu, ldx = s.ldx, ldu = s.ldu;
+  stage_cost_mats(X, sm, tid, kThreads);
   // B [d, nx, nu]: B_k' rows for the backward sweep, B_k rows forward
   for (int e = tid; e < g.d * nu * ldx; e += kThreads) {
     const int kc = e / ldx, r = e % ldx;
@@ -424,22 +461,24 @@ struct Three {
   T a, b, c;
 };
 
-// Calls use(r, load(r)) for r in [0, n), in order, loading kBatch rows
+// Calls use(r, load(r)) for r in [0, n), in order, loading BATCH rows
 // ahead: the loads of a batch are independent and in flight together, so a
 // thread waits for device memory once per batch instead of once per row.
+// The sweeps batch kBatch rows; the metric kernel, whose registers bound
+// it, fewer (metric_apply.cu).
 constexpr int kBatch = 8;
 
-template <class Load, class Use>
+template <int BATCH = kBatch, class Load, class Use>
 __device__ __forceinline__ void rows(int n, Load&& load, Use&& use) {
   using V = decltype(load(0));
-  for (int r0 = 0; r0 < n; r0 += kBatch) {
-    V v[kBatch];
+  for (int r0 = 0; r0 < n; r0 += BATCH) {
+    V v[BATCH];
 #pragma unroll
-    for (int k = 0; k < kBatch; ++k) {
+    for (int k = 0; k < BATCH; ++k) {
       if (r0 + k < n) v[k] = load(r0 + k);
     }
 #pragma unroll
-    for (int k = 0; k < kBatch; ++k) {
+    for (int k = 0; k < BATCH; ++k) {
       if (r0 + k < n) use(r0 + k, v[k]);
     }
   }
@@ -447,19 +486,19 @@ __device__ __forceinline__ void rows(int n, Load&& load, Use&& use) {
 
 // rows() with every row index a compile-time constant (the loop unrolled
 // over kMaxDim), so that ``use`` may index a register column by it.
-template <class Load, class Use>
+template <int BATCH = kBatch, class Load, class Use>
 __device__ __forceinline__ void rows_all(int n, Load&& load, Use&& use) {
   using V = decltype(load(0));
 #pragma unroll
-  for (int r0 = 0; r0 < kMaxDim; r0 += kBatch) {
+  for (int r0 = 0; r0 < kMaxDim; r0 += BATCH) {
     if (r0 < n) {
-      V v[kBatch];
+      V v[BATCH];
 #pragma unroll
-      for (int k = 0; k < kBatch; ++k) {
+      for (int k = 0; k < BATCH; ++k) {
         if (r0 + k < n) v[k] = load(r0 + k);
       }
 #pragma unroll
-      for (int k = 0; k < kBatch; ++k) {
+      for (int k = 0; k < BATCH; ++k) {
         if (r0 + k < n) use(r0 + k, v[k]);
       }
     }
@@ -509,20 +548,20 @@ __device__ __forceinline__ MatRows<T> mat_rows(const T* at, int ld,
 // Calls use(r, load(r), t) for r < h in order, with t row r of m against
 // the register column w of n values.  The choice between staged and
 // node-minor rows is made once, outside the loop over the rows.
-template <typename T, class Load, class Use>
+template <int BATCH = kBatch, typename T, class Load, class Use>
 __device__ __forceinline__ void mat_rows_dot(const MatRows<T>& m,
                                              const T (&w)[kMaxDim], int n,
                                              int h, Load&& load, Use&& use) {
   using V = decltype(load(0));
   if constexpr (kNodeCosts) {
     if (m.node) {
-      rows(h, load, [&](int r, const V& v) {
+      rows<BATCH>(h, load, [&](int r, const V& v) {
         use(r, v, dot_nm(m.p + r * m.rs, m.cs, w, n));
       });
       return;
     }
   }
-  rows(h, load, [&](int r, const V& v) {
+  rows<BATCH>(h, load, [&](int r, const V& v) {
     use(r, v, dot_v(m.p + r * m.rs, w, m.rs));
   });
 }
@@ -555,7 +594,7 @@ __device__ __forceinline__ void child_product(T (&w)[kMaxDim], const T* nm,
 // of L' (a_k[q] = at(q, k), the child's column c0 + k m of a dual block).
 // Uniform M: M' (sum_k a_k), with the rows of M' staged at mt (row length
 // ld).  Per-node M: child by child from the node-minor copy nm [h, h, nn].
-template <typename T, class At, class Load, class Use>
+template <int BATCH = kBatch, typename T, class At, class Load, class Use>
 __device__ __forceinline__ void child_rows(const T* mt, int ld, const T* nm,
                                            int nn, int h, int d, int c0,
                                            int m, At&& at, Load&& load,
@@ -565,20 +604,34 @@ __device__ __forceinline__ void child_rows(const T* mt, int ld, const T* nm,
   if constexpr (kNodeCosts) {
     if (nm != nullptr) {
       child_product(w, nm, nn, h, d, c0, m, at);
-      rows_all(h, load, [&](int r, const V& v) { use(r, v, w[r]); });
+      rows_all<BATCH>(h, load, [&](int r, const V& v) { use(r, v, w[r]); });
       return;
     }
   }
   child_column(w, h, d, at);
-  rows(h, load,
+  rows<BATCH>(h, load,
        [&](int r, const V& v) { use(r, v, dot_v(mt + r * ld, w, ld)); });
 }
 
+// The residual of a metric pass that accumulates nothing (M x alone, in
+// metric_apply.cu): it reads no memory, and metric_node then skips its sums
+// and maxima.
+template <typename T>
+struct NoResidual {
+  __device__ __forceinline__ T operator()(int, int) const { return T(0); }
+};
+
+template <class RA>
+constexpr bool kAccumulates = true;
+template <typename T>
+constexpr bool kAccumulates<NoResidual<T>> = false;
+
 // The metric image of x at the entries node nd owns, accumulated against
 // the residual rr: sum += rr . (M x), mz / mv = max |M x| over its primal /
-// dual entries; each entry is also written to the lane mo unless it is
-// null.  An entry of M x is val = x - scale * (L or L' x).
-template <typename T, class XA, class RA>
+// dual entries (not with a NoResidual rr); each entry is also written to
+// the lane mo unless it is null.  An entry of M x is val = x - scale * (L or
+// L' x).  Row loads are batched BATCH at a time (rows()).
+template <typename T, class XA, class RA, int BATCH = kBatch>
 __device__ void metric_node(const StepConsts<T>& X, const T* sm, int nd,
                             const XA& x, const RA& rr, const Lane<T>* mo,
                             T& sum, T& mz, T& mv) {
@@ -591,8 +644,10 @@ __device__ void metric_node(const StepConsts<T>& X, const T* sm, int nd,
   T* const* out = mo ? mo->p : nullptr;
   auto acc = [&](int b, int i, T xv, T rv, T l, T scale, T& m) {
     const T val = xv - scale * l;
-    sum += rv * val;
-    m = absmax(m, val);
+    if constexpr (kAccumulates<RA>) {
+      sum += rv * val;
+      m = absmax(m, val);
+    }
     if (out) out[b][i] = val;
   };
   T w[kMaxDim];
@@ -605,7 +660,7 @@ __device__ void metric_node(const StepConsts<T>& X, const T* sm, int nd,
     const int c0 = child_of(g, nd, t, 0) - 1;
     const int mt = g.off[t + 1] - g.off[t];
     // x: cx + sum_k sqrtQ_k' qx_k + Gx' pnl
-    child_rows(
+    child_rows<BATCH>(
         sm + s.QT, ldx, X.k.nmQ, n_nr, nx, g.d, c0, mt,
         [&](int q, int k) { return x(DQX, q * n_nr + c0 + k * mt); },
         [&](int r) { return three(PX, r * n + nd, DCX, r * n_nl + nd); },
@@ -614,7 +669,7 @@ __device__ void metric_node(const StepConsts<T>& X, const T* sm, int nd,
               v.c + ct + poly_lt<DPNL>(lm.Gx, g.nc, nx, r, n_nl, nd, x);
           acc(PX, r * n + nd, v.a, v.b, lt, gamma, mz);
         });
-    child_rows(
+    child_rows<BATCH>(
         sm + s.RT, ldu, X.k.nmR, n_nr, nu, g.d, c0, mt,
         [&](int q, int k) { return x(DRU, q * n_nr + c0 + k * mt); },
         [&](int r) { return three(PU, r * n_nl + nd, DCU, r * n_nl + nd); },
@@ -626,29 +681,34 @@ __device__ void metric_node(const StepConsts<T>& X, const T* sm, int nd,
     const T sby = x(DSBY, nd);
     acc(PS, nd, x(PS, nd), rr(PS, nd), sby, gamma, mz);
     const T* bb = lm.b + nd * lm.sb;
-    rows(g.ny,
-         [&](int r) { return three(PY, r * n_nl + nd, DY, r * n_nl + nd); },
-         [&](int r, const Three<T>& v) {
-           acc(PY, r * n_nl + nd, v.a, v.b, v.c - bb[r] * sby, gamma, mz);
-         });
+    rows<BATCH>(
+        g.ny,
+        [&](int r) { return three(PY, r * n_nl + nd, DY, r * n_nl + nd); },
+        [&](int r, const Three<T>& v) {
+          acc(PY, r * n_nl + nd, v.a, v.b, v.c - bb[r] * sby, gamma, mz);
+        });
     // dual: y, sby, cx, cu, pnl of the node
     T by = T(0);
-    rows(g.ny,
-         [&](int r) { return three(DY, r * n_nl + nd, PY, r * n_nl + nd); },
-         [&](int r, const Three<T>& v) {
-           by += bb[r] * v.c;
-           acc(DY, r * n_nl + nd, v.a, v.b, v.c, sigma, mv);
-         });
+    rows<BATCH>(
+        g.ny,
+        [&](int r) { return three(DY, r * n_nl + nd, PY, r * n_nl + nd); },
+        [&](int r, const Three<T>& v) {
+          by += bb[r] * v.c;
+          acc(DY, r * n_nl + nd, v.a, v.b, v.c, sigma, mv);
+        });
     acc(DSBY, nd, x(DSBY, nd), rr(DSBY, nd), x(PS, nd) - by, sigma, mv);
-    rows(nx, [&](int r) { return three(DCX, r * n_nl + nd, PX, r * n + nd); },
-         [&](int r, const Three<T>& v) {
-           acc(DCX, r * n_nl + nd, v.a, v.b, v.c, sigma, mv);
-         });
-    rows(nu,
-         [&](int r) { return three(DCU, r * n_nl + nd, PU, r * n_nl + nd); },
-         [&](int r, const Three<T>& v) {
-           acc(DCU, r * n_nl + nd, v.a, v.b, v.c, sigma, mv);
-         });
+    rows<BATCH>(
+        nx,
+        [&](int r) { return three(DCX, r * n_nl + nd, PX, r * n + nd); },
+        [&](int r, const Three<T>& v) {
+          acc(DCX, r * n_nl + nd, v.a, v.b, v.c, sigma, mv);
+        });
+    rows<BATCH>(
+        nu,
+        [&](int r) { return three(DCU, r * n_nl + nd, PU, r * n_nl + nd); },
+        [&](int r, const Three<T>& v) {
+          acc(DCU, r * n_nl + nd, v.a, v.b, v.c, sigma, mv);
+        });
     for (int r = 0; r < g.nc; ++r) {
       T ax = T(0);
       for (int k = 0; k < nx; ++k) ax += lm.Gx[r * nx + k] * x(PX, k * n + nd);
@@ -665,7 +725,7 @@ __device__ void metric_node(const StepConsts<T>& X, const T* sm, int nd,
     for (int q = 0; q < kMaxDim; ++q) {
       w[q] = q < nx ? x(DQNX, q * n_lf + l) : T(0);
     }
-    mat_rows_dot(
+    mat_rows_dot<BATCH>(
         mat_rows(sm + s.QNT, ldx, X.k.nmQN, nx, n_lf, l, true), w, nx, nx,
         [&](int r) { return three(PX, r * n + nd, DCXN, r * n_lf + l); },
         [&](int r, const Three<T>& v, T t) {
@@ -680,7 +740,7 @@ __device__ void metric_node(const StepConsts<T>& X, const T* sm, int nd,
     for (int q = 0; q < kMaxDim; ++q) {
       w[q] = q < nx ? x(PX, q * n + nd) : T(0);
     }
-    mat_rows_dot(
+    mat_rows_dot<BATCH>(
         mat_rows(sm + s.QN, ldx, X.k.nmQN, nx, n_lf, l, false), w, nx, nx,
         [&](int r) {
           return Two<T>{x(DQNX, r * n_lf + l), rr(DQNX, r * n_lf + l)};
@@ -691,11 +751,12 @@ __device__ void metric_node(const StepConsts<T>& X, const T* sm, int nd,
     const T hs = T(0.5) * x(PS, nd);
     acc(DS12, l, x(DS12, l), rr(DS12, l), hs, sigma, mv);
     acc(DS13, l, x(DS13, l), rr(DS13, l), hs, sigma, mv);
-    rows(nx,
-         [&](int r) { return three(DCXN, r * n_lf + l, PX, r * n + nd); },
-         [&](int r, const Three<T>& v) {
-           acc(DCXN, r * n_lf + l, v.a, v.b, v.c, sigma, mv);
-         });
+    rows<BATCH>(
+        nx,
+        [&](int r) { return three(DCXN, r * n_lf + l, PX, r * n + nd); },
+        [&](int r, const Three<T>& v) {
+          acc(DCXN, r * n_lf + l, v.a, v.b, v.c, sigma, mv);
+        });
     for (int r = 0; r < g.ncL; ++r) {
       T ax = T(0);
       for (int k = 0; k < nx; ++k) {
@@ -715,7 +776,7 @@ __device__ void metric_node(const StepConsts<T>& X, const T* sm, int nd,
     for (int q = 0; q < kMaxDim; ++q) {
       w[q] = q < nx ? x(PX, q * n + p) : T(0);
     }
-    mat_rows_dot(
+    mat_rows_dot<BATCH>(
         mat_rows(sm + s.Q, ldx, X.k.nmQ, nx, n_nr, j, false), w, nx, nx,
         [&](int r) {
           return Two<T>{x(DQX, r * n_nr + j), rr(DQX, r * n_nr + j)};
@@ -727,7 +788,7 @@ __device__ void metric_node(const StepConsts<T>& X, const T* sm, int nd,
     for (int q = 0; q < kMaxDim; ++q) {
       w[q] = q < nu ? x(PU, q * n_nl + p) : T(0);
     }
-    mat_rows_dot(
+    mat_rows_dot<BATCH>(
         mat_rows(sm + s.R, ldu, X.k.nmR, nu, n_nr, j, false), w, nu, nu,
         [&](int r) {
           return Two<T>{x(DRU, r * n_nr + j), rr(DRU, r * n_nr + j)};

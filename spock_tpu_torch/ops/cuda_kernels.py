@@ -6,7 +6,9 @@
 ``csrc/prox_h_conj.cu`` and it replaces the Pallas TPU kernel
 ``spock_tpu/ops/pallas_kernels.py::prox_h_conj_fused``.  The kernel is bound
 by memory: it reads and writes the nv values of the dual iterate once per
-lane (90 MB per launch at the headline size, about 27 us at 3.35 TB/s).
+lane (90 MB per launch at the headline size, about 27 us at 3.35 TB/s).  It
+runs two passes, the second-order cones a column per thread and the blocks
+that need no column as a flat elementwise stream; one launch runs both.
 
 The wrapper takes the plain version (:func:`spock_tpu_torch.ops.prox.
 prox_h_conj`) only for tensors that lie on the CPU.  For CUDA tensors it
@@ -99,7 +101,7 @@ def prox_h_conj_fused(data: ProblemData, meta: ProblemMeta, v: Dual,
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"prox_h_conj kernel: dtype {dtype} not supported")
     B = v.sby.shape[0]
-    if not 0 < B <= 65535:
+    if B < 1:
         raise ValueError(f"prox_h_conj kernel: batch {B} out of range")
     shapes = block_shapes(meta, B)
     for name, a in zip(DUAL_BLOCKS, blocks):

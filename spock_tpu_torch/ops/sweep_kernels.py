@@ -8,7 +8,9 @@ The counterpart of the JAX package's ``spock_tpu/ops/pallas_sweep.py``:
   with the metric image of the residual and the SuperMann reductions when
   asked;
 * ``metric_apply_fused`` applies the metric M in one launch of
-  ``csrc/metric_apply.cu``.
+  ``csrc/metric_apply.cu``, on the same two bodies (``metric_body``): the
+  node body's metric pass, its lanes spread over blocks of four lanes that
+  share a node tile (``metric_grid``), or the element body.
 
 They take the JAX functions' arguments and return the same tuples, for the
 JAX kernels' whole problem class (``supported``): costs and risk data uniform
@@ -47,16 +49,18 @@ from ..zv import DUAL_BLOCKS, Dual, Primal
 from . import _build, cuda_kernels
 from .linop import metric_apply
 
-# launches of each wrapper's kernel, and of csrc/cp_sweep.cu by body
+# launches of each wrapper's kernel, and of csrc/cp_sweep.cu and
+# csrc/metric_apply.cu by body
 LAUNCHES = {"cp_sweep_fused": 0, "cp_sweep_metric_fused": 0,
             "candidate_sweep_fused": 0, "metric_apply_fused": 0,
-            "cp_sweep_node_body": 0, "cp_sweep_element_body": 0}
+            "cp_sweep_node_body": 0, "cp_sweep_element_body": 0,
+            "metric_apply_node_body": 0, "metric_apply_element_body": 0}
 
 MAX_STAGES = 24  # kMaxStages of csrc/sweep_common.cuh
 MAX_KER = 32  # kMaxKer of csrc/sweep_body.cuh: ny + 2 d
 MAX_DIM = 32  # kMaxDim of csrc/step_body.cuh: nx, nu, polytope rows
 NODE, ELEMENT = "node", "element"
-BODY_CODE = {ELEMENT: 0, NODE: 1}  # csrc/cp_sweep.cu's body codes
+BODY_CODE = {ELEMENT: 0, NODE: 1}  # the body codes of the C entries
 THREADS = 512  # kThreads of csrc/sweep_body.cuh
 # csrc/step_body.cuh: values of one block reduction, dynamic shared memory
 # per block, Riccati node groups at most
@@ -70,7 +74,8 @@ _SIGNATURES = {
                  ctypes.c_double, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                  ctypes.c_int, ctypes.c_void_p],
     "metric_apply": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_double,
-                     ctypes.c_double, ctypes.c_int, ctypes.c_void_p],
+                     ctypes.c_double, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_void_p],
 }
 _CONSTS: dict = {}
 
@@ -96,6 +101,34 @@ def _pad4(n: int) -> int:
     return (n + 3) // 4 * 4
 
 
+def _cost_mats(meta: ProblemMeta, data: ProblemData) -> list:
+    """The values of each staged region of step_body.cuh's
+    ``plan_cost_mats``: sqrtQ, sqrtR, sqrtQN and their transposes where
+    uniform (rows padded to 4 values), 0 where per node."""
+    ldx, ldu = _pad4(meta.nx), _pad4(meta.nu)
+    q, r, qn = (a.shape[0] == 1 for a in (data.sqrtQ, data.sqrtR,
+                                           data.sqrtQN))
+    return ([meta.nx * ldx] * 2 * q + [meta.nu * ldu] * 2 * r
+            + [meta.nx * ldx] * 2 * qn)
+
+
+def node_fits(meta: ProblemMeta) -> bool:
+    """The node body holds a node's columns in registers: nx, nu and the
+    polytope rows of a node are at most MAX_DIM."""
+    return max(meta.nx, meta.nu, meta.nc_nl, meta.nc_lf) <= MAX_DIM
+
+
+def metric_plan(meta: ProblemMeta, data: ProblemData, itemsize: int):
+    """The shared memory of a node-body launch of csrc/metric_apply.cu for
+    values of ``itemsize`` bytes, as step_body.cuh's ``metric_plan`` makes
+    it: {bytes} per block, the uniform cost matrices and their transposes
+    alone; None where the node body does not take the problem."""
+    nbytes = sum(_pad4(n) for n in _cost_mats(meta, data)) * itemsize
+    if not node_fits(meta) or nbytes > SMEM_LIMIT:
+        return None
+    return dict(bytes=nbytes)
+
+
 def node_plan(meta: ProblemMeta, data: ProblemData, itemsize: int):
     """The node body's shared-memory plan for values of ``itemsize`` bytes,
     as csrc/step_body.cuh's ``node_fits`` and ``plan_smem`` make it:
@@ -106,15 +139,13 @@ def node_plan(meta: ProblemMeta, data: ProblemData, itemsize: int):
     node groups as fit."""
     t = meta.tree
     nx, nu, d = meta.nx, meta.nu, t.d
-    if max(nx, nu, meta.nc_nl, meta.nc_lf) > MAX_DIM:
+    if not node_fits(meta):
         return None
     ldx, ldu = _pad4(nx), _pad4(nu)
     mker = meta.ny + 2 * d
-    uniform = [a.shape[0] == 1 for a in (data.sqrtQ, data.sqrtR,
-                                         data.sqrtQN, data.ker_proj)]
-    staged = ([nx * ldx] * 2 * uniform[0] + [nu * ldu] * 2 * uniform[1]
-              + [nx * ldx] * 2 * uniform[2]
-              + [d * nu * ldx, d * nx * ldu, mker * _pad4(mker) * uniform[3]])
+    ker = data.ker_proj.shape[0] == 1
+    staged = _cost_mats(meta, data) + [d * nu * ldx, d * nx * ldu,
+                                       mker * _pad4(mker) * ker]
     o = sum(_pad4(n) for n in staged)
     backward = nu * ldu + d * nx * ldu + d * nx * ldx + nx * ldu
     forward = nu * ldx + d * nx * ldx
@@ -143,6 +174,30 @@ def sweep_body(meta: ProblemMeta, data: ProblemData, dtype) -> str:
         raise ValueError("sweep kernels: unsupported problem class")
     itemsize = torch.finfo(dtype).bits // 8
     return ELEMENT if node_plan(meta, data, itemsize) is None else NODE
+
+
+def metric_body(meta: ProblemMeta, data: ProblemData, dtype) -> str:
+    """The body of csrc/metric_apply.cu that runs the problem, by the rule of
+    ``sweep_body``: ``NODE`` where ``metric_plan`` fits, ``ELEMENT``
+    otherwise.  Raises on a problem outside the kernels' class."""
+    if not supported(meta, data):
+        raise ValueError("metric kernel: unsupported problem class")
+    itemsize = torch.finfo(dtype).bits // 8
+    return ELEMENT if metric_plan(meta, data, itemsize) is None else NODE
+
+
+NODE_TILE = 32  # kNodeTile of csrc/metric_apply.cu: a warp's nodes
+METRIC_LANES = 4  # its kMetricLanes: lanes (warps) a block
+
+
+def metric_grid(meta: ProblemMeta, B: int) -> dict:
+    """The node body's launch of csrc/metric_apply.cu at B lanes: a grid of
+    (node tiles, lane groups) blocks of METRIC_LANES warps, each warp one
+    lane on the tile's NODE_TILE nodes (the last group's surplus warps
+    idle)."""
+    n = meta.tree.n
+    return dict(tiles=-(-n // NODE_TILE), groups=-(-B // METRIC_LANES),
+                lanes=METRIC_LANES, threads=32 * METRIC_LANES)
 
 
 def pair_shapes(meta: ProblemMeta, B: int) -> list:
@@ -401,14 +456,18 @@ def candidate_sweep_fused(data: ProblemData, meta: ProblemMeta, z: Primal,
 
 def metric_apply_fused(data: ProblemData, meta: ProblemMeta, z: Primal,
                        v: Dual, gamma, sigma):
-    """M (z, v) in one launch; returns (Mz, Mv)."""
+    """M (z, v) in one launch on the body the problem's class takes; returns
+    (Mz, Mv)."""
     name = "metric_apply_fused"
     if _on_cpu(z.s, v.sby):
         return metric_apply(data, meta, z, v, gamma, sigma)
     device, dtype, B, shapes, ins, consts = _inputs(name, data, meta, z, v)
+    body = metric_body(meta, data, dtype)
     outs = _empty(shapes, dtype, device)
-    ptr = [_ptr(a) for a in ins + outs + consts[:N_LMATS]]
+    ptr = [_ptr(a) for a in ins + outs + consts[:N_LMATS]
+           + consts[N_CONSTS:]]
     _launch(name, "metric_apply", dtype, device, ptr,
-            _dims(data, meta, False),
-            float(gamma), float(sigma), B)
+            _dims(data, meta, False), float(gamma), float(sigma),
+            BODY_CODE[body], B)
+    LAUNCHES[f"metric_apply_{body}_body"] += 1
     return _pair(outs)
