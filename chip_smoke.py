@@ -10,11 +10,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
 2. build: every kernel under ``spock_tpu_torch/csrc`` (prox_h_conj,
    cp_sweep, metric_apply, sp_step) with nvcc for sm_90a, all started at
    once in the background (cp_sweep and sp_step, whose sweeps take minutes
-   of ptxas, in four and two parts), each waited for at its
-   first use: the phases that need only prox_h_conj (its row of phase 3,
-   the composed farm of 4c) run during the long builds; nvcc seconds per
-   source, ptxas registers, spills and shared memory, and the node body's
-   shared-memory plans are printed once all are built;
+   of ptxas, in four and two parts), and the native oracle with g++, each
+   waited for at its first use: the phases that need only prox_h_conj (its
+   row of phase 3, the composed farm of 4c) run during the long builds;
+   nvcc and g++ seconds, ptxas registers, spills and shared memory, and the
+   node body's shared-memory plans are printed once all are built;
 3. each kernel against its plain PyTorch version at the shapes of the main
    path (B = 128 lanes of server_heat N=10 nx=nu=20 d=2, float32), and both
    timed with CUDA events: prox_h_conj, cp_sweep_fused,
@@ -24,22 +24,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
    csrc/cp_sweep.cu (candidate_sweep_fused) and csrc/metric_apply.cu on
    server_heat N=4 at nx=nu=33, above the node body's 32, driven by two
    Solvers on the sweep kernels (Anderson, Broyden); after 4a, the step
-   kernels of csrc/sp_step.cu (the
-   function of both TPU step kernels) on a real carry, one fused iteration
+   kernels of csrc/sp_step.cu (the function of both TPU step kernels) on
+   a real carry, one fused iteration
    into a solve from the main path's final state, held in float64 and
    timed in float32: sp_step_fused at tau = 1 with the carry's cache
-   flags, and sp_step_retrial (a backtracking retrial on the zbar and d
-   the tau = 1 launch kept) on the lanes that launch leaves looping, on
-   the first of them alone and on all B lanes; the ptxas report and the shared-memory plan of the step
-   kernels are printed after the build;
+   flags, and sp_step_backtrack (every looping lane's trials at tau =
+   beta, beta^2, ... on the zbar and d the tau = 1 launch kept, in one
+   launch) on the lanes that launch leaves looping, on the first of them
+   alone and on all B lanes; the ptxas report and the shared-memory plan
+   of the step kernels are printed after the build;
 4. the paths, each driven with every kernel launch count set to 0 just
    before it and read just after:
-   a. the main path, ``mpc.simulate_async`` on the fused step: the
-      warm-started async MPC farm of B = 128 server_heat chains at tol 1e-3
-      (a cold phase of 2 steps, then a warm phase of 24 steps chained from
-      its state), where every SuperMann iteration is one sp_step_fused
-      launch plus one sp_step_retrial launch per backtracking retrial, over
-      the lanes still looping (their mean number is reported);
+   a. the main path, ``mpc.simulate_async`` on the fused step in chunks
+      of ITERS_PER_LAUNCH farm iterations, each one replay of a CUDA
+      graph: the warm-started async MPC farm of B = 128 server_heat chains
+      at tol 1e-3 (a cold phase of 2 steps, then a warm phase of 24 steps
+      chained from its state), where every SuperMann iteration is one
+      sp_step_fused launch and one sp_step_backtrack launch; the chunks,
+      the capture's seconds and the iterations after each phase's end are
+      printed; then the same two phases eagerly (``iters_per_launch=0``),
+      held bitwise equal to the graphed ones, for ms per farm iteration
+      and solves/s of both;
    b. the same farm on the fused sweep (``fused_step=False``), where every
       CP sweep is one launch of a sweep kernel (each farm prints its launches
       by kernel and, for csrc/cp_sweep.cu, by body: the node body only);
@@ -49,13 +54,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
       and e. ``Solver`` with Broyden directions, one metric_apply_fused
       launch per iteration (all on the node body), both warm-started from
       4 lanes of the main path's farm at its final states;
-5. the solution: the float32 root controls of a cold 1-step farm on the
-   main path from the warm phase's states against the port's own float64
-   solve on the CPU (composed iteration, tol 1e-5) for 2 lanes, and the
-   controls of 4d and 4e at the same states against the same solve;
-6. where the time goes: ``torch.profiler`` over 10 warm farm iterations of
-   the main path (device time per iteration, kernels per iteration, the
-   step kernel's share, the top kernels);
+5. the solution: the float32 root controls of a cold 1-step farm on
+   the main path (graphed) from the warm phase's states against the native
+   float64 oracle (``spock_tpu_torch.baselines.native``, SuperMann, tol
+   1e-5, as bench.py's parity check) for 2 lanes, and the controls of 4d
+   and 4e at the same states against the same solve;
+6. where the time goes: ``torch.profiler`` over 10 eager and 2 graphed
+   chunks of warm farm iterations of the main path (device time per
+   iteration, kernels per iteration, the device's busy share, the step
+   kernels' share, the top kernels, and whether the profiler sees the
+   graph replays' kernels), then the main path's line beside the eager
+   farm's before its retrials left the host (BEFORE_GRAPHS);
 7. the wider problem class, in two configurations built here from the
    headline spec with ``dataclasses.replace``: ``server_heat_poly_navar``
    (per-node AV@R and two-sided polytope rows) and
@@ -68,23 +77,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
    d. the ``_pncost`` farm, on the sweep kernels #3 and #4 (the step
       kernel's class has uniform costs; the node body with per-node costs),
       and a CP and a Broyden ``Solver`` warm-started from it (#2, #5);
-   e. the solutions: the root controls of both farms and of the two solves
-      against the port's float64 solves (``_pncost``'s on the card, see
-      below), the root polytope rows, and that the polytope binds (the
-      float64 objective with it exceeds the one without it).
+   e. the solutions: the root controls of the ``_navar`` farm against the
+      native oracle, of the ``_pncost`` farm and of its two solves against
+      the port's float64 solve on the card (the oracle rejects per-node
+      costs), the root polytope rows, and that the polytope binds (the
+      oracle's objective with it exceeds the one without it).
 
 Each phase prints the seconds since the script started (``[time]``).
 
-The float64 reference solves of phases 5 and 7e run on the host's CPU in
-REF_WORKERS worker processes, each started as soon as its farm has given the
-check states, so they overlap the card's phases; the farms of 7d and 7b
-therefore run as soon as their kernels are built.  The ``_pncost`` solve
-(1022 per-node matrices, ~4,000 iterations: 819.5 s on the host's CPU, more
-than the rest of the run) runs on the card instead, after the timed
-phases: the same plain float64 solve, on the composed path, where no kernel
-runs for a problem with polytope rows (the launch counts show it).  The
-workers and the builds are stopped or waited for when the script ends,
-whatever happens.
+The native oracle's library is built by g++ beside the kernels, and its
+solves for phases 5 and 7e run on the host's CPU in REF_WORKERS worker
+processes, each started as soon as its farm has given the check states,
+so they overlap the card's phases; the farms of 7d and 7b therefore run as
+soon as their kernels are built.  The ``_pncost`` reference (1022 per-node
+matrices, ~4,000 iterations, which took 819.5 s on the host's CPU) runs on
+the card, after the timed phases: the port's plain float64 solve, on the
+composed path, where no kernel runs for a problem with polytope rows (the
+launch counts show it).  The workers and the builds are stopped or waited
+for when the script ends, whatever happens.
 
 The last lines are the card, one JSON object with a row per kernel, and the
 result line ``{"ok": true, "device": {...}}``; the line before the card
@@ -101,6 +111,7 @@ import multiprocessing
 import os
 import subprocess
 import sys
+import threading
 import time
 import types
 
@@ -116,6 +127,7 @@ TOL = 1e-3
 COLD_STEPS, WARM_STEPS = 2, 24
 COLD_CAP, WARM_CAP = 1500, 1500  # farm-iteration caps: a stuck lane fails fast
 PROFILE_ITERS = 10
+PROFILE_CHUNKS = 2  # graph replays profiled
 CHECK_LANES = 2
 SOLVE_LANES = 4  # lanes of the CP and Broyden solves (Broyden: 29.6 MB each)
 CP_CAP, BROYDEN_CAP = 5000, 1000
@@ -175,10 +187,19 @@ POLY_LO_N, POLY_HI_N = (0.005,), (0.15,)
 NAVAR, PNCOST = "poly_navar", "poly_navar_pncost"
 ROOT_ROWS_TOL = 1e-3  # the f32 farm's root polytope rows, as tol
 BIND_MARGIN = 1e-4  # objective with the polytope - without, at a check state
-# the float64 CPU reference solves run in worker processes beside the card's
-# phases, one thread each: per-node AV@R slows their convergence (thousands
-# of iterations)
+# the native oracle's float64 solves run in worker processes beside the
+# card's phases, one core each: per-node AV@R slows their convergence
+# (thousands of iterations)
 REF_WORKERS, REF_CAP = 4, 10_000
+ORACLE, ORACLE_CAP = "the native f64 oracle", 20_000  # bench.py's cap
+# the main path's chunk of farm iterations, one CUDA graph replay: a
+# multiple of 3, so that every chunk starts at history phase 0
+ITERS_PER_LAUNCH = 30
+# the main path eagerly, with a host sync per backtracking retrial, before
+# the graphed chunks (this script on an NVIDIA H100 80GB HBM3 at 700.00 W):
+# ms per farm iteration, kernels per farm iteration, the device's busy
+# share, solves/s
+BEFORE_GRAPHS = (6.38, 112.2, 0.490, 652.18)
 # the element body's row: server_heat N=4 above the node body's 32 states
 WIDE_NX, WIDE_N = 33, 4
 ELEMENT_CAP = 3000
@@ -561,7 +582,7 @@ def step_bytes_ops(meta, args, out, consts):
     """Bytes the tau = 1 step's function must move (each input read once,
     each of its six output pairs and its scalars written once; a lane reads
     the cache pair only when its cache flag is set; what the kernel keeps
-    for the retrials is not counted) and its floating-point operations (the
+    for the backtrack is not counted) and its floating-point operations (the
     fresh sweep only for lanes without a cache, the candidate sweep, and ~40
     operations per value of the pair for the residual, the Gram sums, the
     direction and the commit)."""
@@ -578,18 +599,19 @@ def step_bytes_ops(meta, args, out, consts):
     return nbytes, B * per_lane
 
 
-def retrial_bytes_ops(meta, k, pair_bytes, consts):
-    """Bytes and operations of a retrial of k lanes: z, d and zbar read and
-    z_new and s written at those lanes (the pair of one lane is
-    pair_bytes / B), the constants once; the candidate sweep and ~20
-    operations per value for the commit."""
-    nbytes = 5 * k * pair_bytes / B + nbytes_of(consts)
-    return nbytes, k * (sweep_ops(meta, True, True)
-                        + 20 * (meta.nz + meta.nv))
+def backtrack_bytes_ops(meta, k, trials, pair_bytes, consts):
+    """Bytes and operations of the backtrack of k looping lanes that make
+    ``trials`` trials in all: z, d and zbar read and z_new and s written
+    once at those lanes (the pair of one lane is pair_bytes / B), the
+    output scalars of every lane, the constants once; the candidate sweep
+    and ~20 operations per value for the commit a trial."""
+    nbytes = 5 * k * pair_bytes / B + 2 * B * 16 * 4 + nbytes_of(consts)
+    return nbytes, trials * (sweep_ops(meta, True, True)
+                             + 20 * (meta.nz + meta.nv))
 
 
 def hold_step(name, got, ref, lanes=None):
-    """A step's six pairs (or the retrial's z_new and s) and its output
+    """A step's six pairs (or the backtrack's z_new and s) and its output
     slots 0-12 in float64 against the plain version's, with identical K1 /
     K2 / loop decisions; ``lanes`` picks the rows of the pairs to compare.
     Returns the largest error and the errors by slot."""
@@ -614,16 +636,19 @@ def step_kernel_checks(data, meta, spec, res2, card, opts, tag=None,
     """Phase 3, step rows, on a real carry at B lanes:
     - the tau = 1 launch with the carry's cache flags (the function of the
       lane-tiled TPU kernel, #7) against sp_step_ref;
-    - a retrial (#6) of the lanes that launch leaves looping, at tau = beta
-      on the zbar and d it kept, against sp_retrial_ref, and in float64 also
-      against sp_step_ref with no cache at tau = beta on those lanes (from a
-      tau = 1 launch with no cache, so that its zbar is the fresh sweep);
-    - the retrial of the first of those lanes alone, and of all B lanes.
+    - the backtrack (#6) of the lanes that launch leaves looping, each
+      making its trials at tau = beta, beta^2, ... on the zbar and d it
+      kept, against sp_backtrack_ref, and in float64 one trial of it
+      (max_backtracks = 1) also against sp_step_ref with no cache at tau =
+      beta on those lanes (from a tau = 1 launch with no cache, so that its
+      zbar is the fresh sweep);
+    - the backtrack of the first of those lanes alone, and of all B
+      lanes.
     Each is held in float64 and timed in float32, where the K1/K2 decisions
     of kernel and plain version are compared lane by lane.  Also times the
     tau = 1 launch with every lane cached and with none.  ``mean_lanes``:
-    the farm's mean looping lanes per retrial, taken when the carry leaves
-    no lane looping.  Rows and messages are named ``name[tag]``."""
+    the farm's mean looping lanes per farm iteration, taken when the carry
+    leaves no lane looping.  Rows and messages are named ``name[tag]``."""
     from spock_tpu_torch import build
     from spock_tpu_torch.algorithms import supermann as sp
     from spock_tpu_torch.ops import spstep, sweep_kernels
@@ -707,79 +732,101 @@ def step_kernel_checks(data, meta, spec, res2, card, opts, tag=None,
                                data, meta, *args, g, g, **knobs),
                                spin=4 * SPIN_CYCLES), nbytes, ops, card))
 
-    # ---- the retrial (#6): the lanes the carry loops on, then all ----
+    # ---- the backtrack (#6): the lanes the carry loops on, then one of
+    # them alone, then all ----
     looping = torch.nonzero(got64[6][:, spstep.OC_LOOP] > 0.5).flatten()
     if looping.numel() == 0:
         k = max(1, round(mean_lanes or 1))
         looping = torch.nonzero(act).flatten()[:k]
-        print(f"[step] the carry leaves no lane looping: the retrial row "
-              f"takes the first {looping.numel()} active lanes", flush=True)
-    tau_bt = torch.full_like(c.r_safe, opts.beta)
-    scal_bt = inputs(c.cache_valid, tau_bt)[-1]
-    scal_bt64 = scal_bt.double()
-    # against sp_step_ref with no cache at tau = beta, on a keep with no
-    # cache: the retrial's function
+        print(f"[step] the carry leaves no lane looping: the backtrack rows "
+              f"take the first {looping.numel()} active lanes", flush=True)
+    bt = (opts.beta, opts.max_backtracks)
+
+    def marked(oscal, lanes):
+        """The tau = 1 launch's output scalars with ``lanes`` looping."""
+        o = oscal.clone()
+        o[:, spstep.OC_LOOP] = 0.0
+        o[lanes, spstep.OC_LOOP] = 1.0
+        return o
+
+    # one trial (max_backtracks = 1) against sp_step_ref with no cache at
+    # tau = beta on those lanes, from a tau = 1 launch with no cache (its
+    # zbar is the fresh sweep): the function of a trial
     nc64 = inputs(no_cache, ones, torch.float64)
     keep_nc = spstep.sp_step_fused(data64, meta64, *nc64, g64, g64, **knobs)
+    tau_bt = torch.full_like(c.r_safe, opts.beta)
     ref_bt = spstep.sp_step_ref(
         data64, meta64, *inputs(no_cache, tau_bt, torch.float64), g64, g64,
         **knobs)
-    sc_nc = spstep.sp_step_retrial(
-        data64, meta64, *nc64[:2], keep_nc[7], nc64[9], scal_bt64, looping,
-        keep_nc[0], keep_nc[3], g64, g64, **knobs)
+    sc_nc = spstep.sp_step_backtrack(
+        data64, meta64, *nc64[:2], keep_nc[7], nc64[9], nc64[10],
+        marked(keep_nc[6], looping), keep_nc[0], keep_nc[3], g64, g64,
+        opts.beta, 1, **knobs)
     torch.cuda.synchronize()
     fn_err, _ = hold_step(
-        row_name("sp_step_retrial vs sp_step_ref", tag),
-        (keep_nc[0], keep_nc[3], sc_nc),
+        row_name("sp_step_backtrack vs sp_step_ref", tag),
+        (keep_nc[0], keep_nc[3], sc_nc[looping]),
         (ref_bt[0], ref_bt[3], ref_bt[6][looping]), lanes=looping)
-    for label, lanes in (("sp_step_retrial", looping),
-                         ("sp_step_retrial_one", looping[:1]),
-                         ("sp_step_retrial_all", torch.arange(
+    for label, lanes in (("sp_step_backtrack", looping),
+                         ("sp_step_backtrack_one", looping[:1]),
+                         ("sp_step_backtrack_all", torch.arange(
                              B, device=looping.device))):
         name = row_name(label, tag)
         # float64: kernel and plain version on the same kept zbar and d
+        o64 = marked(got64[6], lanes)
         zk, sk = tmap(torch.clone, got64[0]), tmap(torch.clone, got64[3])
         zr, sr = tmap(torch.clone, got64[0]), tmap(torch.clone, got64[3])
-        out64 = spstep.sp_step_retrial(data64, meta64, *args64[:2], got64[7],
-                                       args64[9], scal_bt64, lanes, zk, sk,
-                                       g64, g64, **knobs)
+        out64 = spstep.sp_step_backtrack(data64, meta64, *args64[:2],
+                                         got64[7], args64[9], args64[10],
+                                         o64, zk, sk, g64, g64, *bt, **knobs)
         torch.cuda.synchronize()
-        outr = spstep.sp_retrial_ref(data64, meta64, *args64[:2], got64[7],
-                                     args64[9], scal_bt64, lanes, zr, sr,
-                                     g64, g64, **knobs)
+        outr, _ = spstep.sp_backtrack_ref(data64, meta64, *args64[:2],
+                                          got64[7], args64[9], args64[10],
+                                          o64, zr, sr, g64, g64, *bt,
+                                          **knobs)
         max_err, slot_err = hold_step(name, (zk, sk, out64), (zr, sr, outr))
+        check(torch.equal(out64[:, spstep.OC_TRIALS],
+                          outr[:, spstep.OC_TRIALS]),
+              f"{name}: float64 trials differ from the plain version")
         # float32, on the float32 launch's keep
+        o32 = marked(got[6], lanes)
         zk, sk = tmap(torch.clone, got[0]), tmap(torch.clone, got[3])
         zr, sr = tmap(torch.clone, got[0]), tmap(torch.clone, got[3])
-        out32 = spstep.sp_step_retrial(data, meta, *args[:2], got[7],
-                                       args[9], scal_bt, lanes, zk, sk, g, g,
-                                       **knobs)
-        outr32 = spstep.sp_retrial_ref(data, meta, *args[:2], got[7],
-                                       args[9], scal_bt, lanes, zr, sr, g, g,
-                                       **knobs)
+        out32 = spstep.sp_step_backtrack(data, meta, *args[:2], got[7],
+                                         args[9], args[10], o32, zk, sk, g,
+                                         g, *bt, **knobs)
+        outr32, _ = spstep.sp_backtrack_ref(data, meta, *args[:2], got[7],
+                                            args[9], args[10], o32, zr, sr,
+                                            g, g, *bt, **knobs)
         torch.cuda.synchronize()
-        e32 = f32_agreement(name, (zk, sk, out32), (zr, sr, outr32), lanes)
+        e32 = f32_agreement(name, (zk, sk, out32), (zr, sr, outr32))
+        trials = out32[:, spstep.OC_TRIALS]
+        n_trials = int(trials.sum())
         extra[name] = dict(f64_slot_max_abs_err=slot_err, **e32,
-                           retrial_lanes=int(lanes.numel()),
-                           f64_max_abs_err_vs_sp_step_ref=fn_err)
+                           looping_lanes=int(lanes.numel()),
+                           trials=n_trials,
+                           trials_by_count=torch.bincount(
+                               trials[lanes].long()).tolist(),
+                           f64_max_abs_err_one_trial_vs_sp_step_ref=fn_err)
         report(name, max_err, slot_err, e32,
-               f"{lanes.numel()} lanes at tau = {opts.beta}; against "
-               f"sp_step_ref with no cache on the looping lanes "
-               f"{fn_err:.3e}")
+               f"{lanes.numel()} looping lanes, {n_trials} trials (tau = "
+               f"{opts.beta}^k, up to {opts.max_backtracks}); one trial "
+               f"against sp_step_ref with no cache on the carry's looping "
+               f"lanes {fn_err:.3e}")
         zt, st = tmap(torch.clone, got[0]), tmap(torch.clone, got[3])
 
-        def kernel(lanes=lanes, zt=zt, st=st):
-            return spstep.sp_step_retrial(data, meta, *args[:2], got[7],
-                                          args[9], scal_bt, lanes, zt, st, g,
-                                          g, **knobs)
+        def kernel(o=o32, zt=zt, st=st):
+            return spstep.sp_step_backtrack(data, meta, *args[:2], got[7],
+                                            args[9], args[10], o, zt, st, g,
+                                            g, *bt, **knobs)
 
-        def plain(lanes=lanes, zt=zt, st=st):
-            return spstep.sp_retrial_ref(data, meta, *args[:2], got[7],
-                                         args[9], scal_bt, lanes, zt, st, g,
-                                         g, **knobs)
+        def plain(o=o32, zt=zt, st=st):
+            return spstep.sp_backtrack_ref(data, meta, *args[:2], got[7],
+                                           args[9], args[10], o, zt, st, g,
+                                           g, *bt, **knobs)
 
-        nbytes, ops = retrial_bytes_ops(meta, int(lanes.numel()),
-                                        nbytes_of(leaves(args[:2])), consts)
+        nbytes, ops = backtrack_bytes_ops(meta, int(lanes.numel()), n_trials,
+                                          nbytes_of(leaves(args[:2])), consts)
         rows.append(kernel_row(name, STEP_SOURCE, STEP_ROWS["sp_step_fused"],
                                max_err, time_ms(kernel),
                                time_ms(plain, spin=4 * SPIN_CYCLES), nbytes,
@@ -813,7 +860,7 @@ def reset_counts():
     from spock_tpu_torch.ops import cuda_kernels, spstep, sweep_kernels
 
     cuda_kernels.LAUNCHES = 0
-    spstep.RETRIAL_LANES = 0
+    spstep.reset_retrials()
     for counts in (sweep_kernels.LAUNCHES, spstep.LAUNCHES):
         for k in counts:
             counts[k] = 0
@@ -911,32 +958,75 @@ def element_body_check(card, device):
 
 
 def check_step_farm(counts, farm_iters, label):
-    """A farm on the fused step: one sp_step_fused launch per farm iteration
-    and retrial launches, no other kernel.  Returns the retrial launches per
-    farm iteration."""
-    check(counts["sp_step_fused"] == farm_iters,
-          f"{label}: sp_step_fused launched {counts['sp_step_fused']} times "
-          f"in {farm_iters} farm iterations")
+    """A farm on the fused step: one sp_step_fused and one sp_step_backtrack
+    launch per farm iteration run (``farm_iters``, those after the farm's
+    end in its last graphed chunk included), no other kernel."""
+    for name in ("sp_step_fused", "sp_step_backtrack"):
+        check(counts[name] == farm_iters,
+              f"{label}: {name} launched {counts[name]} times in "
+              f"{farm_iters} farm iterations")
     others = {k: c for k, c in counts.items()
-              if k not in ("sp_step_fused", "sp_step_retrial")}
+              if k not in ("sp_step_fused", "sp_step_backtrack")}
     check(not any(others.values()),
           f"the {label} farm launched other kernels: {others}")
-    return counts["sp_step_retrial"] / farm_iters
 
 
 def step_launches(rows, counts):
     """The launches of the step rows on their farm: the tau = 1 row's, then
-    the retrial kernel's for the retrial rows."""
+    the backtrack kernel's for the backtrack rows."""
     rows[0]["launches"] = counts["sp_step_fused"]
     for row in rows[1:]:
-        row["launches"] = counts["sp_step_retrial"]
+        row["launches"] = counts["sp_step_backtrack"]
+
+
+def check_bitwise(label, got, want):
+    """Two farm results bitwise equal."""
+    from spock_tpu_torch.zv import leaves
+
+    check(got.total_iterations == want.total_iterations,
+          f"{label}: {got.total_iterations} farm iterations, eager "
+          f"{want.total_iterations}")
+    fields = ("steps_done", "iters_per_step", "us", "xs")
+    for name, a, b in (
+            [(f, getattr(got, f), getattr(want, f)) for f in fields]
+            + [(f"z/v leaf {i}", a, b) for i, (a, b) in enumerate(zip(
+                leaves((got.z, got.v)), leaves((want.z, want.v))))]):
+        check(torch.equal(a, b), f"{label}: {name} differs from the eager "
+              f"farm's by {abs_err(a.double(), b.double())}")
+
+
+def main_path_line(nums, prof, card):
+    """The main path's four numbers beside BEFORE_GRAPHS': ms per farm
+    iteration, kernels per farm iteration, the device's busy share and
+    solves/s."""
+    g = prof.get("graphed") if prof else None
+    e = prof.get("eager") if prof else None
+
+    def fmt(d, key, scale=1.0, f=".3f"):
+        return "not measured" if d is None else format(scale * d[key], f)
+
+    print(f"[main path] graphed chunks of {ITERS_PER_LAUNCH}: "
+          f"{nums['ms_per_farm_iteration']:.3f} ms per farm iteration, "
+          f"{fmt(g, 'device_kernels_per_iter', f='.1f')} kernels per farm "
+          f"iteration, device busy "
+          f"{fmt(g, 'device_busy_share', 100.0, '.1f')}%, "
+          f"{nums['solves_per_s']:.2f} solves/s; eager in this run "
+          f"{nums['eager']['ms_per_farm_iteration']:.3f} ms, "
+          f"{fmt(e, 'device_kernels_per_iter', f='.1f')} kernels, busy "
+          f"{fmt(e, 'device_busy_share', 100.0, '.1f')}%, "
+          f"{nums['eager']['solves_per_s']:.2f} solves/s; before (eager, "
+          f"a host sync per retrial): {BEFORE_GRAPHS[0]} ms, "
+          f"{BEFORE_GRAPHS[1]} kernels, {100 * BEFORE_GRAPHS[2]:.1f}%, "
+          f"{BEFORE_GRAPHS[3]} solves/s [{card}]", flush=True)
 
 
 def farm(data, meta, x0, ws, card, device, label, warm_steps, **path):
     """Phase 4a-4c: cold then warm async farm on the path given by the
-    ``fused_sweep``/``fused_step`` switches in ``path``, with the launch
-    counts set to 0 just before and read just after.  Returns both results,
-    the numbers of the run and its farm iterations."""
+    ``fused_sweep``/``fused_step``/``iters_per_launch`` switches in
+    ``path``, with the launch counts set to 0 just before and read just
+    after.  Returns both results, the numbers of the run and the farm
+    iterations it ran (in graphed chunks, those after each phase's end
+    included: every one launched its kernels)."""
     from spock_tpu_torch import mpc
     from spock_tpu_torch.ops import spstep
 
@@ -950,6 +1040,7 @@ def farm(data, meta, x0, ws, card, device, label, warm_steps, **path):
                               max_total_iters=COLD_CAP, device=device, **path)
     sync()
     cold_s = time.perf_counter() - t0
+    cold_run = res1.run
     check(bool((res1.steps_done == COLD_STEPS).all()),
           f"{label} cold phase incomplete after {res1.total_iterations} farm "
           f"iterations: steps_done={res1.steps_done.tolist()}")
@@ -959,13 +1050,14 @@ def farm(data, meta, x0, ws, card, device, label, warm_steps, **path):
                               device=device, **path)
     sync()
     warm_s = time.perf_counter() - t0
+    warm_run = res2.run
     counts = launch_counts()
-    retrial_lanes = spstep.RETRIAL_LANES
+    looped, trials = spstep.retrials()
     check(bool((res2.steps_done == warm_steps).all()),
           f"{label} warm phase incomplete after {res2.total_iterations} farm "
           f"iterations: steps_done={res2.steps_done.tolist()}")
     iters = res2.iters_per_step[:warm_steps].double().cpu().numpy()
-    farm_iters = res1.total_iterations + res2.total_iterations
+    farm_iters = cold_run["executed"] + warm_run["executed"]
     nums = dict(
         warm_steps=warm_steps,
         cold_farm_iterations=res1.total_iterations,
@@ -977,11 +1069,16 @@ def farm(data, meta, x0, ws, card, device, label, warm_steps, **path):
         mean_iters_per_solve=float(iters.mean()),
         p99_iters=float(np.percentile(iters, 99)),
         ms_per_farm_iteration=1e3 * warm_s / res2.total_iterations,
+        # per iteration run, those after the phase's end included
+        ms_per_farm_iteration_run=1e3 * warm_s / warm_run["executed"],
+        farm_iterations_run=farm_iters,
+        cold_run=cold_run,
+        warm_run=warm_run,
         launches=counts,
         launches_per_farm_iteration={k: c / farm_iters
                                      for k, c in counts.items()},
-        mean_lanes_per_retrial=(retrial_lanes / counts["sp_step_retrial"]
-                                if counts["sp_step_retrial"] else 0.0),
+        looping_lanes_per_farm_iteration=looped / farm_iters,
+        trials_per_looping_lane=trials / looped if looped else 0.0,
     )
     print(f"[{label} farm] cold {COLD_STEPS} steps: "
           f"{res1.total_iterations} farm iterations in {cold_s:.2f} s; warm "
@@ -990,45 +1087,72 @@ def farm(data, meta, x0, ws, card, device, label, warm_steps, **path):
           f"{nums['mean_iters_per_solve']:.2f} / p99 {nums['p99_iters']:.1f} "
           f"iterations per solve, {nums['ms_per_farm_iteration']:.2f} ms per "
           f"farm iteration [{card}]", flush=True)
+    if warm_run["iters_per_launch"]:
+        print(f"[{label} farm] iters_per_launch "
+              f"{warm_run['iters_per_launch']}, graphed "
+              f"{warm_run['graphed']}: cold {cold_run['chunks']} graph "
+              f"replays + {cold_run['eager_chunks']} eager chunks, "
+              f"{cold_run['wasted']} iterations after its end; warm "
+              f"{warm_run['chunks']} + {warm_run['eager_chunks']}, "
+              f"{warm_run['wasted']} after its end; captures "
+              f"{cold_run['captures'] + warm_run['captures']} in "
+              f"{cold_run['capture_s'] + warm_run['capture_s']:.3f} s, "
+              f"warm-up {cold_run['warmup_s'] + warm_run['warmup_s']:.3f} s "
+              f"[{card}]", flush=True)
     per = ", ".join(f"{k} {c} ({c / farm_iters:.2f}/iter)"
                     for k, c in counts.items() if c)
-    print(f"[{label} farm] launches over {farm_iters} farm iterations: {per}"
-          + (f"; {nums['mean_lanes_per_retrial']:.2f} looping lanes per "
-             "retrial launch" if counts["sp_step_retrial"] else ""),
+    print(f"[{label} farm] launches over {farm_iters} farm iterations run: "
+          f"{per}" + (f"; {looped} lanes backtracked "
+                      f"({nums['looping_lanes_per_farm_iteration']:.2f} per "
+                      f"farm iteration), {trials} trials "
+                      f"({nums['trials_per_looping_lane']:.2f} per lane)"
+                      if counts["sp_step_backtrack"] else ""),
           flush=True)
     return res1, res2, nums, farm_iters
 
 
-def reference_solve(spec, xs, device="cpu"):
+def reference_solve(spec, xs):
     """The port's float64 solve (plain versions, composed iteration, tol
-    1e-5) from the states xs [lanes, nx] (numpy): on the CPU, in a worker
-    process on one thread; on the card, on the composed path
-    (``fused_sweep=False``), where no kernel runs for a problem with
-    polytope rows (checked).  Returns (root controls, objectives, seconds,
-    iterations, converged)."""
+    1e-5) from the states xs [lanes, nx] (numpy) on the card, on the
+    composed path (``fused_sweep=False``), where no kernel runs for a
+    problem with polytope rows (checked): the reference of ``_pncost``,
+    whose per-node costs the native oracle rejects.  Returns (root
+    controls, objectives, seconds, iterations, converged)."""
     from spock_tpu_torch import build
     from spock_tpu_torch.solver import Solver
 
     t0 = time.perf_counter()
-    on_card = device != "cpu"
-    if on_card:
-        check(spec.polytope is not None, "a reference solve on the card "
-              "needs polytope rows, which keep every kernel out of it")
-        reset_counts()
-    else:
-        torch.set_num_threads(1)
-    data64, meta64 = build(spec, dtype=torch.float64, device=device)
+    check(spec.polytope is not None, "a reference solve on the card needs "
+          "polytope rows, which keep every kernel out of it")
+    reset_counts()
+    data64, meta64 = build(spec, dtype=torch.float64, device="cuda")
     ref = Solver(data64, meta64, algorithm="spock", max_iter=REF_CAP,
-                 device=device, fused_step=False,
-                 fused_sweep=not on_card).solve(
-                     torch.tensor(xs, device=device), tol=1e-5)
-    if on_card:
-        counts = launch_counts()
-        check(not any(counts.values()),
-              f"the reference solve on the card launched kernels: {counts}")
+                 device="cuda", fused_step=False, fused_sweep=False).solve(
+                     torch.tensor(xs, device="cuda"), tol=1e-5)
+    counts = launch_counts()
+    check(not any(counts.values()),
+          f"the reference solve on the card launched kernels: {counts}")
     return (ref.z.u[:, :, 0].cpu().numpy(), ref.z.s[:, 0].cpu().numpy(),
             time.perf_counter() - t0, ref.iterations.tolist(),
             bool(ref.converged.all()))
+
+
+def oracle_solve(spec, xs):
+    """The native C++ oracle (``spock_tpu_torch.baselines.native``: float64
+    on one CPU core, SuperMann + Anderson, tol 1e-5, a cold solve per
+    state, as bench.py's parity check) from each of the states xs [lanes,
+    nx] (numpy), in a worker process.  Returns (root controls, objectives,
+    seconds, iterations, converged)."""
+    from spock_tpu_torch.baselines.native import NativeSolver
+
+    t0 = time.perf_counter()
+    ns = NativeSolver(spec)
+    res = [ns.solve(x, tol=1e-5, max_iter=ORACLE_CAP, algorithm="spock",
+                    warm_start=False) for x in xs]
+    return (np.stack([r["u"][0] for r in res]),
+            np.array([r["objective"] for r in res]),
+            time.perf_counter() - t0, [r["iterations"] for r in res],
+            all(r["converged"] for r in res))
 
 
 def check_states(xs):
@@ -1036,43 +1160,46 @@ def check_states(xs):
     return xs[:CHECK_LANES].double().cpu().numpy()
 
 
-def submit_reference(pool, spec, xs):
-    """Start :func:`reference_solve` on the CPU from the check states."""
-    return pool.apply_async(reference_solve, (spec, check_states(xs)))
+def submit_oracle(pool, spec, xs):
+    """Start :func:`oracle_solve` in a worker from the check states."""
+    return pool.apply_async(oracle_solve, (spec, check_states(xs)))
 
 
 def reference(job, label):
     """The result of a reference solve (submitted, or done: a tuple), which
     must converge."""
     u, obj, seconds, iters, ok = job if isinstance(job, tuple) else job.get()
-    check(ok, f"{label}: float64 CPU reference did not converge in {REF_CAP} "
-          f"iterations: {iters}")
+    check(ok, f"{label}: float64 reference did not converge: iterations "
+          f"{iters}")
     return u, obj, seconds, iters
 
 
-def solution_check(data, meta, spec, xs, ws, card, device, ref, tag=None,
-                   ref_free=None):
+def solution_check(data, meta, spec, xs, ws, card, device, ref, ref_name,
+                   tag=None, ref_free=None, **path):
     """Phase 5 (7e with ``tag``): f32 root controls of a cold 1-step farm on
-    the configuration's default path against the port's float64 plain solve
-    ``ref`` (submitted from the same states).  With a polytope, also the
-    root rows of the f32 controls, and with ``ref_free`` (the solve without
-    the polytope) whether the polytope binds: the float64 objective with it
-    exceeds the one without it by BIND_MARGIN at one of the check states.
-    Returns the numbers and the reference controls."""
+    the configuration's default path (or ``path``) against the float64
+    solve ``ref`` (submitted from the same states; ``ref_name`` names it:
+    the native oracle, or the port's float64 solve on the card).  With a
+    polytope, also the root rows of the f32 controls, and with ``ref_free``
+    (the solve without the polytope) whether the polytope binds: the
+    float64 objective with it exceeds the one without it by BIND_MARGIN at
+    one of the check states.  Returns the numbers and the reference
+    controls."""
     from spock_tpu_torch import mpc
 
     label = row_name("solution", tag)
     res = mpc.simulate_async(data, meta, xs, ws, TOL, n_steps=1,
-                             max_total_iters=COLD_CAP, device=device)
+                             max_total_iters=COLD_CAP, device=device, **path)
     check(bool((res.steps_done == 1).all()), f"{label}: cold 1-step farm "
           "incomplete")
     u_f32 = res.us[0, :CHECK_LANES].double().cpu().numpy()
     u_ref, obj, ref_s, ref_iters = reference(ref, label)
     err = float(np.abs(u_f32 - u_ref).max())
     print(f"[{label}] controls_max_err={err:.3e} over {CHECK_LANES} lanes "
-          f"(f32 card farm vs f64 plain solve: {ref_iters} iterations in "
-          f"{ref_s:.1f} s, limit {CONTROLS_TOL}) [{card}]", flush=True)
-    out = dict(controls_max_err=err, reference_s=ref_s,
+          f"(f32 card farm{' in graphed chunks' if path else ''} vs "
+          f"{ref_name}: {ref_iters} iterations in {ref_s:.1f} s, limit "
+          f"{CONTROLS_TOL}) [{card}]", flush=True)
+    out = dict(controls_max_err=err, reference=ref_name, reference_s=ref_s,
                reference_iterations=ref_iters)
     poly = spec.polytope
     if poly is not None:
@@ -1158,7 +1285,8 @@ def wide_farms(spec, x0, ws, card, device, opts, pool, built):
     """The farm of 7d and phase 7b: the ``_pncost`` farm on the sweep
     kernels, once they are built, and, once every kernel is (``built()``),
     the ``_navar`` farm on the fused step, followed by the submission of its
-    float64 reference solves.  Returns their state."""
+    native-oracle solves (with and without the polytope).  Returns their
+    state."""
     import dataclasses
 
     from spock_tpu_torch import build
@@ -1186,7 +1314,7 @@ def wide_farms(spec, x0, ws, card, device, opts, pool, built):
           and pcounts["candidate_sweep_fused"] >= p_iters,
           f"{PNCOST}: the farm's sweep launches {pcounts} in {p_iters} farm "
           "iterations")
-    check(pcounts["sp_step_fused"] == 0 and pcounts["sp_step_retrial"] == 0
+    check(pcounts["sp_step_fused"] == 0 and pcounts["sp_step_backtrack"] == 0
           and pcounts["prox_h_conj"] == 0,
           f"{PNCOST}: the farm launched the step or prox kernel")
     check_node_body(pcounts, f"{PNCOST} farm", SWEEP_LAUNCHES)
@@ -1197,8 +1325,8 @@ def wide_farms(spec, x0, ws, card, device, opts, pool, built):
         w.data_n, w.meta_n, x0, ws, card, device, f"{NAVAR} fused-step",
         WARM_STEPS)
     check_step_farm(w.nnums["launches"], w.n_iters, NAVAR)
-    w.ref_n = submit_reference(pool, w.spec_n, w.res2_n.xs)
-    w.ref_free = submit_reference(
+    w.ref_n = submit_oracle(pool, w.spec_n, w.res2_n.xs)
+    w.ref_free = submit_oracle(
         pool, dataclasses.replace(w.spec_n, polytope=None), w.res2_n.xs)
     return w
 
@@ -1220,7 +1348,7 @@ def wide_checks(w, ws, card, device, opts):
     # 7c. the step kernel on a real _navar carry
     nrows, nextra = step_kernel_checks(
         w.data_n, w.meta_n, w.spec_n, w.res2_n, card, opts, tag=NAVAR,
-        mean_lanes=w.nnums["mean_lanes_per_retrial"])
+        mean_lanes=w.nnums["looping_lanes_per_farm_iteration"])
     step_launches(nrows, w.nnums["launches"])
 
     # 7d. the Solvers warm-started from the _pncost farm: #2 and #5
@@ -1241,13 +1369,15 @@ def wide_checks(w, ws, card, device, opts):
     # 7e. the solutions; the _pncost reference on the card, after every
     # timed phase, while the _navar ones finish on the host
     stamp("7a-7d done")
-    ref_p = reference_solve(w.spec_p, check_states(w.res2_p.xs), "cuda")
+    ref_p = reference_solve(w.spec_p, check_states(w.res2_p.xs))
     stamp("the _pncost reference solve done")
     nsol, _ = solution_check(w.data_n, w.meta_n, w.spec_n, w.res2_n.xs, ws,
-                             card, device, w.ref_n, tag=NAVAR,
+                             card, device, w.ref_n, ORACLE, tag=NAVAR,
                              ref_free=w.ref_free)
     psol, u_ref = solution_check(w.data_p, w.meta_p, w.spec_p, w.res2_p.xs,
-                                 ws, card, device, ref_p, tag=PNCOST)
+                                 ws, card, device, ref_p,
+                                 "the port's f64 solve on the card",
+                                 tag=PNCOST)
     solver_controls(((f"cp solve [{PNCOST}]", u_cp, cp),
                      (f"broyden solve [{PNCOST}]", u_broyden, broyden)),
                     u_ref, card)
@@ -1263,60 +1393,75 @@ def wide_checks(w, ws, card, device, opts):
                 pncost_broyden_solve=broyden)
 
 
-def profile_farm(data, meta, res2, ws, card, wall_ms_per_iter):
-    """Phase 6: device time and kernel mix of PROFILE_ITERS warm farm
-    iterations on the main path (a measurement: a profiler that sees no
-    device time reports "not measured")."""
+def profile_farm(data, meta, res2, ws, card, wall_ms):
+    """Phase 6: device time and kernel mix of warm farm iterations on the
+    main path, PROFILE_ITERS of them eagerly and PROFILE_CHUNKS graph
+    replays (a measurement: a profiler that sees no device time reports
+    "not measured"), per farm iteration run (a graphed chunk may run
+    iterations after the farm's end).  ``wall_ms``: {"eager": ms,
+    "graphed": ms} per farm iteration run in the unprofiled warm phases."""
     from torch.profiler import ProfilerActivity, profile
 
     from spock_tpu_torch import mpc
 
-    def run():
+    def run(iters, k):
         return mpc.simulate_async(
             data, meta, res2.xs, ws, TOL, n_steps=ws.shape[0],
-            max_total_iters=PROFILE_ITERS, z0=res2.z, v0=res2.v)
+            max_total_iters=iters, z0=res2.z, v0=res2.v, iters_per_launch=k)
 
-    run()  # same path once more, outside the profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        res = run()
+    out = {}
+    for label, iters, k in (
+            ("eager", PROFILE_ITERS, 0),
+            ("graphed", PROFILE_CHUNKS * ITERS_PER_LAUNCH, ITERS_PER_LAUNCH)):
+        run(iters, k)  # same path once more, outside the profile
         torch.cuda.synchronize()
-    iters = res.total_iterations
-    kernels = []
-    for e in prof.key_averages():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-            kernels.append((us, e.count, e.key))
-    kernels.sort(reverse=True)
-    device_ms = sum(k[0] for k in kernels) / 1e3 / iters
-    launches = sum(k[1] for k in kernels) / iters
-    if device_ms <= 0:
-        print(f"[profile] device time not measured [{card}]", flush=True)
-        return None
-    top = [dict(name=k[2][:80], ms_per_iter=k[0] / 1e3 / iters,
-                calls_per_iter=k[1] / iters) for k in kernels[:8]]
-    step = [k for k in kernels
-            if "sp_step_kernel" in k[2] or "sp_retrial_kernel" in k[2]]
-    step_ms = sum(k[0] for k in step) / 1e3 / iters
-    step_calls = sum(k[1] for k in step) / iters
-    out = dict(device_ms_per_iter=device_ms,
-               device_kernels_per_iter=launches,
-               wall_ms_per_iter_unprofiled=wall_ms_per_iter,
-               device_busy_share=device_ms / wall_ms_per_iter,
-               step_kernel_ms_per_iter=step_ms,
-               step_kernel_calls_per_iter=step_calls, top=top)
-    print(f"[profile] main-path farm, per farm iteration: device "
-          f"{device_ms:.3f} ms in {launches:.1f} kernels, wall "
-          f"{wall_ms_per_iter:.2f} ms -> device busy "
-          f"{100 * out['device_busy_share']:.1f}%; sp_step kernel "
-          f"{step_ms:.3f} ms in {step_calls:.2f} launches [{card}]",
-          flush=True)
-    for t in top:
-        print(f"[profile]   {t['ms_per_iter']:.3f} ms/iter "
-              f"{t['calls_per_iter']:.1f} calls/iter  {t['name']}",
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            res = run(iters, k)
+            torch.cuda.synchronize()
+        check(res.run["captures"] == 0
+              and res.run["chunks"] == (PROFILE_CHUNKS if k else 0),
+              f"profile of the {label} farm: {res.run}")
+        n = res.run["executed"]
+        kernels = []
+        for e in prof.key_averages():
+            if str(getattr(e, "device_type", "")).endswith("CUDA"):
+                us = getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+                kernels.append((us, e.count, e.key))
+        kernels.sort(reverse=True)
+        device_ms = sum(k_[0] for k_ in kernels) / 1e3 / n
+        launches = sum(k_[1] for k_ in kernels) / n
+        if device_ms <= 0:
+            print(f"[profile] {label} farm: device time not measured (the "
+                  f"profiler saw no kernel) [{card}]", flush=True)
+            out[label] = None
+            continue
+        top = [dict(name=k_[2][:80], ms_per_iter=k_[0] / 1e3 / n,
+                    calls_per_iter=k_[1] / n) for k_ in kernels[:8]]
+        step = [k_ for k_ in kernels if "sp_step_kernel" in k_[2]
+                or "sp_backtrack_kernel" in k_[2]]
+        step_ms = sum(k_[0] for k_ in step) / 1e3 / n
+        step_calls = sum(k_[1] for k_ in step) / n
+        out[label] = dict(iterations=n, device_ms_per_iter=device_ms,
+                          device_kernels_per_iter=launches,
+                          wall_ms_per_iter_unprofiled=wall_ms[label],
+                          device_busy_share=device_ms / wall_ms[label],
+                          step_kernel_ms_per_iter=step_ms,
+                          step_kernel_calls_per_iter=step_calls, top=top)
+        print(f"[profile] main-path farm, {label}, per farm iteration over "
+              f"{n}: device {device_ms:.3f} ms in {launches:.1f} kernels, "
+              f"wall {wall_ms[label]:.3f} ms -> device busy "
+              f"{100 * out[label]['device_busy_share']:.1f}%; step kernels "
+              f"{step_ms:.3f} ms in {step_calls:.2f} launches [{card}]",
               flush=True)
+        for t in top:
+            print(f"[profile]   {t['ms_per_iter']:.3f} ms/iter "
+                  f"{t['calls_per_iter']:.1f} calls/iter  {t['name']}",
+                  flush=True)
+    out["graph_kernels_seen"] = out["graphed"] is not None
+    print(f"[profile] torch.profiler sees the graph replays' kernels: "
+          f"{out['graph_kernels_seen']} [{card}]", flush=True)
     return out
 
 
@@ -1324,6 +1469,7 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; nothing was run")
     import spock_tpu_torch
+    from spock_tpu_torch.baselines import native
     from spock_tpu_torch.ops import _build
 
     # ---- 1. environment ----
@@ -1337,8 +1483,19 @@ def main():
     check(not torch.backends.cudnn.allow_tf32, "TF32 convolutions are on")
     device = torch.device("cuda")
 
-    # ---- 2. build: every source at once, in the background
+    # ---- 2. build: every source at once, in the background, and the
+    # native oracle's library (g++) beside them
     _build.start()
+    oracle_error = []
+
+    def build_oracle():
+        try:
+            native._lib()
+        except Exception as exc:  # raised by built()
+            oracle_error.append(exc)
+
+    oracle_build = threading.Thread(target=build_oracle, daemon=True)
+    oracle_build.start()
 
     @functools.cache
     def built():
@@ -1359,10 +1516,17 @@ def main():
                       f"registers, spill stores {info.get('spill_stores')} / "
                       f"loads {info.get('spill_loads')} bytes, static shared "
                       f"memory {info.get('static_smem')} bytes", flush=True)
+        oracle_build.join()
+        if oracle_error:
+            raise oracle_error[0]
+        print(f"[oracle] g++ build of native/spock_cpu.cpp into "
+              f"{native.library_path().name}: "
+              + ("already built" if native.BUILD_SECONDS is None
+                 else f"{native.BUILD_SECONDS:.1f} s"), flush=True)
         return build_s, ptxas
 
-    # the float64 CPU reference solves run in these workers, stopped on
-    # the way out whatever happens
+    # the native oracle's solves run in these workers, stopped on the way
+    # out whatever happens
     try:
         with multiprocessing.get_context("spawn").Pool(REF_WORKERS) as pool:
             result = smoke(card, device, pool, built)
@@ -1456,17 +1620,38 @@ def smoke(card, device, pool, built):
     element_rows, element = element_body_check(card, device)
     stamp("phase 3 sweep rows done")
 
-    # ---- 4a. the main path: the farm on the fused step ----
+    # ---- 4a. the main path: the farm on the fused step in graphed chunks
+    # of ITERS_PER_LAUNCH iterations; then the same farm eagerly, held
+    # bitwise ----
     res1, res2, nums, farm_iters = farm(data, meta, x0, ws, card, device,
-                                        "fused-step", WARM_STEPS)
-    nums["retrials_per_farm_iteration"] = check_step_farm(
-        nums["launches"], farm_iters, "fused-step")
-    ref = submit_reference(pool, spec, res2.xs)
+                                        "fused-step", WARM_STEPS,
+                                        iters_per_launch=ITERS_PER_LAUNCH)
+    check_step_farm(nums["launches"], farm_iters, "fused-step")
+    check(nums["cold_run"]["graphed"] and nums["warm_run"]["chunks"] >= 1
+          and nums["cold_run"]["captures"] >= 1
+          and nums["warm_run"]["captures"] == 0,
+          f"the main path did not run in graph replays: {nums['cold_run']}, "
+          f"{nums['warm_run']}")
+    ref = submit_oracle(pool, spec, res2.xs)
+    e1, e2, enums, e_iters = farm(data, meta, x0, ws, card, device,
+                                  "fused-step eager", WARM_STEPS)
+    check_step_farm(enums["launches"], e_iters, "fused-step eager")
+    for phase, got, want in (("cold", res1, e1), ("warm", res2, e2)):
+        check_bitwise(f"graphed {phase} farm", got, want)
+    print(f"[graph] the graphed farm equals the eager farm bitwise, cold "
+          f"and warm (us, xs, z, v, iters_per_step, steps_done, "
+          f"total_iterations); ms per farm iteration: graphed "
+          f"{nums['ms_per_farm_iteration']:.3f}, eager "
+          f"{enums['ms_per_farm_iteration']:.3f} (before: "
+          f"{BEFORE_GRAPHS[0]}); solves/s {nums['solves_per_s']:.2f}, eager "
+          f"{enums['solves_per_s']:.2f} (before: {BEFORE_GRAPHS[3]}) "
+          f"[{card}]", flush=True)
+    nums["eager"] = enums
 
     # ---- 3, step rows: the step kernel on a real carry ----
     step_rows, step_extra = step_kernel_checks(
         data, meta, spec, res2, card, opts,
-        mean_lanes=nums["mean_lanes_per_retrial"])
+        mean_lanes=nums["looping_lanes_per_farm_iteration"])
     step_launches(step_rows, nums["launches"])
     kernels += step_rows
     stamp("4a and the step rows done")
@@ -1481,12 +1666,12 @@ def smoke(card, device, pool, built):
     check(scounts["candidate_sweep_fused"] >= s_iters,
           f"candidate_sweep_fused launched {scounts['candidate_sweep_fused']} "
           f"times in {s_iters} farm iterations")
-    check(scounts["sp_step_fused"] == 0 and scounts["sp_step_retrial"] == 0,
+    check(scounts["sp_step_fused"] == 0 and scounts["sp_step_backtrack"] == 0,
           "the fused-sweep farm launched a step kernel")
     check_node_body(scounts, "fused-sweep farm", SWEEP_LAUNCHES)
     for name in ("cp_sweep_metric_fused", "candidate_sweep_fused"):
         rows[name]["launches"] = scounts[name]
-    print(f"[paths] ms per farm iteration: fused step "
+    print(f"[paths] ms per farm iteration: fused step (graphed) "
           f"{nums['ms_per_farm_iteration']:.2f}, fused sweep "
           f"{snums['ms_per_farm_iteration']:.2f}, composed "
           f"{cnums['ms_per_farm_iteration']:.2f}; solves/s: "
@@ -1507,16 +1692,19 @@ def smoke(card, device, pool, built):
 
     # ---- 5. the solution ----
     sol, u_ref = solution_check(data, meta, spec, res2.xs, ws, card, device,
-                                ref)
+                                ref, ORACLE,
+                                iters_per_launch=ITERS_PER_LAUNCH)
     err = sol["controls_max_err"]
     solver_controls((("cp solve", u_cp, cp),
                      ("broyden solve", u_broyden, broyden)), u_ref, card)
 
     # ---- 6. where the time goes ----
     stamp("4b-5 done")
-    prof = profile_farm(data, meta, res2, ws, card,
-                        nums["ms_per_farm_iteration"])
+    prof = profile_farm(data, meta, res2, ws, card, dict(
+        eager=enums["ms_per_farm_iteration_run"],
+        graphed=nums["ms_per_farm_iteration_run"]))
     stamp("6 done")
+    main_path_line(nums, prof, card)
 
     # ---- 7. the wider class: kernel rows, Solvers and solutions ----
     wide = wide_checks(wide_state, ws, card, device, opts)

@@ -23,8 +23,11 @@ JAX package's ``SPOCK_PALLAS_SWEEP``, given as an argument.
 launch (``ops.spstep.sp_step_fused``) where :func:`use_fused_step` holds:
 Anderson window 3, no K0, the fused sweep, a problem the kernels cover.  Its
 carry is :class:`SPCarryF`, driven by :func:`sp_body_fused` in a 3-phase
-unroll; a backtracking retrial is one ``ops.spstep.sp_step_retrial`` launch
-for the lanes still looping, at their shrunken tau.
+unroll; the backtracking of an iteration is one
+``ops.spstep.sp_step_backtrack`` launch in which each lane still looping
+makes its own trials at its shrunken tau.  An iteration of the fused step
+reads nothing on the host, so a CUDA graph can hold it
+(``mpc.simulate_async``'s ``iters_per_launch``).
 It is the counterpart of the JAX package's ``SPOCK_FUSED_STEP``.
 """
 
@@ -389,8 +392,8 @@ def sp_body(data: ProblemData, meta: ProblemMeta, tol,
 
 
 # ---------------------------------------------------------------------------
-# The fused step: one sp_step_fused launch per iteration (plus one
-# sp_step_retrial launch per backtracking retrial)
+# The fused step: one sp_step_fused launch and one sp_step_backtrack launch
+# per iteration
 # ---------------------------------------------------------------------------
 
 
@@ -462,15 +465,18 @@ def sp_init_fused(meta: ProblemMeta, x0, z0: Primal, v0: Dual,
 
 
 def step_inputs(c: SPCarryF, opts: SuperMannOpts, phase: int, act, cache,
-                r_safe, tau) -> tuple:
+                r_safe, tau, q=None) -> tuple:
     """The arguments of ``spstep.sp_step_fused`` from ``z`` to the scalar
     pack, for a launch at history phase ``phase`` with the per-lane flags
-    ``act``, ``cache`` and values ``r_safe``, ``tau``."""
+    ``act``, ``cache`` and values ``r_safe``, ``tau``; ``q``: opts.q as a
+    0-d tensor of the carry's type and device (made here if None: a copy
+    from the host, which a CUDA graph capture does not allow)."""
     dtype, device = c.r_safe.dtype, c.r_safe.device
     m = opts.aa_window
     a1, a2 = (phase - 1) % m, (phase - 2) % m
-    q_pow = torch.pow(torch.tensor(opts.q, dtype=dtype, device=device),
-                      c.niter.to(dtype))
+    if q is None:
+        q = torch.tensor(opts.q, dtype=dtype, device=device)
+    q_pow = torch.pow(q, c.niter.to(dtype))
     scal = torch.stack(
         [act.to(dtype), (c.niter >= 1).to(dtype), (c.niter >= 2).to(dtype),
          cache.to(dtype), r_safe, q_pow, c.rnorm_c, c.nMrz_c, c.nMrv_c, tau],
@@ -482,54 +488,39 @@ def step_inputs(c: SPCarryF, opts: SuperMannOpts, phase: int, act, cache,
 def sp_body_fused(data: ProblemData, meta: ProblemMeta, tol,
                   opts: SuperMannOpts, phase: int, gamma=None, sigma=None):
     """One fused SuperMann iteration at history phase ``phase`` (= it mod
-    3): carry -> carry.  The MR/MP slots of phase - 1 and phase - 2 are the
-    rows of age 1 and 2; the new rows go to slot ``phase``."""
+    3): carry -> carry, one sp_step_fused launch at tau = 1 and one
+    sp_step_backtrack launch, with no host sync.  The MR/MP slots of phase
+    - 1 and phase - 2 are the rows of age 1 and 2; the new rows go to slot
+    ``phase``."""
     if gamma is None or sigma is None:
         gamma = sigma = step_size(data)
     tol = float(tol)
     m = opts.aa_window
+    # r_safe decays as q^niter: q on the device once per body
+    q = torch.tensor(opts.q, dtype=data.dtype, device=data.device)
+    knobs = dict(c1=opts.c1, sigma_k2=opts.sigma_k2, lam=opts.lam,
+                 lam_sp=opts.lam_sp)
 
     def body(c: SPCarryF) -> SPCarryF:
         B = c.done.shape[0]
         dtype, device = c.r_safe.dtype, c.r_safe.device
         active = ~c.done
-        knobs = dict(c1=opts.c1, sigma_k2=opts.sigma_k2, lam=opts.lam,
-                     lam_sp=opts.lam_sp)
         ones = torch.ones((B,), dtype=dtype, device=device)
+        args = step_inputs(c, opts, phase, active, c.cache_valid, c.r_safe,
+                           ones, q)
         z_new, w, r, s, y, p, sc, keep = spstep.sp_step_fused(
-            data, meta, *step_inputs(c, opts, phase, active, c.cache_valid,
-                                     c.r_safe, ones),
-            gamma, sigma, **knobs)
+            data, meta, *args, gamma, sigma, **knobs)
+        # backtracking: each lane still looping tries tau = beta, beta^2,
+        # ... on the zbar and d the tau = 1 launch kept (z has not moved),
+        # in one launch that writes z_new and s in place at those lanes; a
+        # lane's last trial gives its scalars (r_safe and the fallback's
+        # residuals unchanged where none accepted)
+        sc_bt = spstep.sp_step_backtrack(
+            data, meta, c.z, c.v, keep, c.x0, args[-1], sc, z_new, s, gamma,
+            sigma, opts.beta, opts.max_backtracks, **knobs)
+        r_safe = sc_bt[:, spstep.OC_RSAFE]
+        xi1, xi2 = sc_bt[:, spstep.OC_XI1], sc_bt[:, spstep.OC_XI2]
         k1_first = sc[:, spstep.OC_K1] > 0.5
-        looping = sc[:, spstep.OC_LOOP] > 0.5
-        r_safe = sc[:, spstep.OC_RSAFE]
-        xi1, xi2 = sc[:, spstep.OC_XI1], sc[:, spstep.OC_XI2]
-        # backtracking: a retrial launch for the lanes still looping, at tau
-        # <- beta tau, on the zbar and d the tau = 1 launch kept (z has not
-        # moved); it writes z_new and s in place at those lanes, and the
-        # lanes that accept take its scalars
-        tau = torch.full((B,), opts.beta, dtype=dtype, device=device)
-        for _ in range(opts.max_backtracks):
-            lanes = torch.nonzero(looping).flatten()  # the loop's host sync
-            if lanes.numel() == 0:
-                break
-            scal = step_inputs(c, opts, phase, looping, c.cache_valid,
-                               r_safe, tau)[-1]
-            sc2 = spstep.sp_step_retrial(data, meta, c.z, c.v, keep, c.x0,
-                                         scal, lanes, z_new, s, gamma, sigma,
-                                         **knobs)
-            acc = (sc2[:, spstep.OC_K1] > 0.5) | (sc2[:, spstep.OC_K2] > 0.5)
-
-            def take(old, slot):
-                return old.index_copy(0, lanes, torch.where(
-                    acc, sc2[:, slot], old[lanes]))
-
-            r_safe = take(r_safe, spstep.OC_RSAFE)
-            xi1 = take(xi1, spstep.OC_XI1)
-            xi2 = take(xi2, spstep.OC_XI2)
-            looping = looping.index_copy(0, lanes,
-                                         sc2[:, spstep.OC_LOOP] > 0.5)
-            tau = torch.where(looping, tau * opts.beta, tau)
 
         conv, res0 = check_termination(xi1, xi2, c.res0, tol)
         return SPCarryF(

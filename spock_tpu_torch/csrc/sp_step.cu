@@ -5,9 +5,9 @@
 //   spock_tpu/ops/pallas_spstep.py:1340     sp_step_fused (lane-packed)
 //   spock_tpu/ops/pallas_spstep_lt.py:1093  sp_step_fused (lane-tiled)
 // the first at any per-lane tau, the second at tau = 1.
-// Their plain PyTorch versions are sp_step_ref and sp_retrial_ref in
-// spock_tpu_torch/ops/spstep.py, which also holds the wrappers, the launch
-// counts and the checks.
+// Their plain PyTorch versions are sp_step_ref and sp_backtrack_ref (built
+// on the one-trial sp_retrial_ref) in spock_tpu_torch/ops/spstep.py, which
+// also holds the wrappers, the launch counts and the checks.
 //
 // It takes the JAX step kernels' problem class: uniform costs, risk data
 // uniform or per node, with or without polytope rows (and nx, nu, ny + 2 d
@@ -29,11 +29,20 @@
 //   4. thread 0 makes the K1 / K2 / fallback choice; a last pass writes
 //      z_new and s_new = z_new - z, then the 13 output scalars, and the
 //      lane's kept scalars (||r||_M, the inf-norms of M r, g0-g2, cached).
-// sp_retrial, one block per looping lane of a backtracking retrial (a list
-// of lanes, all active): phases 3 and 4 only, at the lane's tau, on the z̄
-// and d that the tau = 1 launch kept (z has not moved, so phases 1-2 would
-// compute them again); z_new and s are written in place into the tau = 1
-// launch's outputs at those lanes, the output scalars compactly.
+// sp_backtrack, one block per lane, after the tau = 1 launch of the same
+// iteration: a lane that launch left looping (its output scalars' loop
+// flag) runs its whole geometric backtracking sequence tau = beta, beta^2,
+// ... in its block, up to max_backtracks trials, and stops at the first K1
+// or K2 acceptance; each trial is phases 3 and 4 only, on the zbar and d
+// that the tau = 1 launch kept (z has not moved, so phases 1-2 would
+// compute them again), and writes z_new and s in place into the tau = 1
+// launch's outputs at that lane.  A lane that does not loop exits at once
+// and copies its tau = 1 output scalars.  The output scalars are [B, 16],
+// the last trial's at a looping lane, with the trials made in slot 13; the
+// lanes that looped and the trials made are also added to a device
+// counter.  The lane's r_safe and q_pow do not change between its trials
+// (the host loop this replaces took a trial's scalars only where it
+// accepted), so the result of a lane is that loop's, with no host sync.
 // All reductions are fixed-order block reductions: launches are
 // deterministic.
 //
@@ -42,8 +51,10 @@
 // headline size (B = 128 lanes of server_heat N=10 nx=nu=20 d=2, float32,
 // 123,214 values a pair) that is 14 x 63.1 MB = 883 MB, 0.26 ms at
 // 3.35 TB/s, against ~3.5 GFLOP of arithmetic (0.05 ms at 67 TFLOP/s).
-// A retrial of k lanes needs k / 128 of 6 pair passes (z, d, zbar, z_new,
-// s, and w once).
+// The backtrack reads z, d and zbar and writes z_new and s at each
+// looping lane (the kernel passes over them once a trial), with the
+// candidate sweep's arithmetic a trial; a lane that does not loop moves 16
+// scalars.
 //
 // Design.  One 512-thread block per lane (16 warps; its sweeps need the
 // whole lane).  The sweeps (step_body.cuh) compute L and L' a node per
@@ -54,11 +65,12 @@
 // costates in shared memory (135 KB of it in float32, 221 KB in float64 at
 // the headline size).  The streaming passes of phases 2 and 4 load four
 // elements a thread before they store, neighbouring threads on neighbouring
-// addresses.  A retrial runs no phase 1-2 and only for the looping lanes.
-// On the H100 a lane is bound by the latency of its own block (the waits
-// for device memory of a node's thread and the Riccati stages), not by
-// bandwidth: a retrial of one lane takes most of the time of one of all
-// 128 (chip_smoke.py times both).
+// addresses.  A backtrack runs no phase 1-2 and only for the looping
+// lanes, all of an iteration's trials in one launch.  On the H100 a lane is
+// bound by the latency of its own block (the waits for device memory of a
+// node's thread and the Riccati stages), not by bandwidth: the backtrack of
+// one lane takes most of the time of one of all 128 (chip_smoke.py times
+// both).
 //
 // Built in two halves by two nvcc processes at once (ops/_build.py):
 // SPOCK_PART 4 compiles the float entries, 8 the double ones.
@@ -83,6 +95,8 @@ enum { SC_ACTIVE, SC_VALID1, SC_VALID2, SC_CACHE, SC_RSAFE, SC_QPOW, SC_RNC,
        SC_NMZC, SC_NMVC, SC_TAU };
 enum { OC_K1, OC_K2, OC_LOOP, OC_RN, OC_RT, OC_RSAFE, OC_XI1, OC_XI2,
        OC_NMRWZ, OC_NMRWV, OC_G0, OC_G1, OC_G2, kOcUsed };
+// the backtrack's trials made, in its output scalars
+constexpr int kOcTrials = kOcUsed;
 enum { KP_RN, KP_NMZ, KP_NMV, KP_G0, KP_G1, KP_G2, KP_CACHED };
 
 constexpr int kInPairs = 8;
@@ -106,25 +120,27 @@ struct StepParams {
 };
 
 template <typename T>
-struct RetrialParams {
+struct BacktrackParams {
   StepConsts<T> x;
   Pair<T> z, cache, fresh, d;  // inputs, by lane
   Pair<T> zn, s;               // the tau = 1 launch's outputs, by lane
-  Pair<T> w;                   // scratch: the candidate's sweep, by slot
-  const int64_t* lanes;        // [k] the lane of each slot
+  Pair<T> w;                   // scratch: the candidate's sweep, by lane
   const T* x0;                 // [B, nx]
-  const T* scal;               // [B, kScIn]
+  const T* scal;               // [B, kScIn]: the tau = 1 launch's pack
   const T* keep;               // [B, kKeep]
-  T* oscal;                    // [k, kScOut]
-  T* gdv;                      // scratch [k, n_nl ldu]
-  T* qg;                       // scratch [k, qsize]
-  T c1, sigma_k2, lam, lam_sp;
+  const T* oscal1;             // [B, kScOut]: the tau = 1 launch's scalars
+  T* oscal;                    // [B, kScOut]
+  T* gdv;                      // scratch [B, n_nl ldu]
+  T* qg;                       // scratch [B, qsize]
+  unsigned long long* count;   // [2]: lanes looped, trials made (added to)
+  T c1, sigma_k2, lam, lam_sp, beta;
+  int max_bt;
 };
 
 // 16 pairs of 19 pointers and the constants: within the 4 KB of kernel
 // parameters that every CUDA 12 toolkit takes.
 static_assert(sizeof(StepParams<double>) <= 4096, "kernel parameters > 4 KB");
-static_assert(sizeof(RetrialParams<double>) <= 4096,
+static_assert(sizeof(BacktrackParams<double>) <= 4096,
               "kernel parameters > 4 KB");
 
 template <typename T>
@@ -414,36 +430,59 @@ sp_step_kernel(const __grid_constant__ StepParams<T> P) {
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-sp_retrial_kernel(const __grid_constant__ RetrialParams<T> P) {
+sp_backtrack_kernel(const __grid_constant__ BacktrackParams<T> P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   __shared__ Lane<T> lz, ld, lzb, lw, lzn, ls;
   __shared__ T choice[3];
   const Geo& g = P.x.k.g;
-  const int64_t slot = blockIdx.x;
-  const int64_t lane = P.lanes[slot];
+  const int64_t lane = blockIdx.x;
+  const int tid = threadIdx.x;
+  const T* o1 = P.oscal1 + lane * kScOut;
+  T* out = P.oscal + lane * kScOut;
+  if (!(o1[OC_LOOP] > T(0)) || P.max_bt == 0) {
+    if (tid < kScOut) out[tid] = o1[tid];
+    return;
+  }
   const T* sc = P.scal + lane * kScIn;
   const T* kp = P.keep + lane * kKeep;
   const bool cached = kp[KP_CACHED] > T(0);
-  const T tau = sc[SC_TAU];
   make_lane(lz, P.z, lane, g);
   make_lane(ld, P.d, lane, g);
   make_lane(lzb, cached ? P.cache : P.fresh, lane, g);
-  make_lane(lw, P.w, slot, g);
+  make_lane(lw, P.w, lane, g);
   make_lane(lzn, P.zn, lane, g);
   make_lane(ls, P.s, lane, g);
   stage_consts(P.x, sm);
   __syncthreads();
 
-  const SweepRed<T> cand = step_sweep<T, true>(
-      P.x, lz, ld, tau, lw, nullptr, true, P.gdv + slot * g.n_nl * P.x.s.ldu,
-      P.qg + slot * P.x.s.qsize, P.x0 + lane * g.nx, sm);
-  const CommitIn<T> ci{kp[KP_RN], kp[KP_NMZ], kp[KP_NMV], sc[SC_RSAFE],
-                       sc[SC_QPOW], tau, kp[KP_G0], kp[KP_G1], kp[KP_G2],
-                       true};
-  commit(P, cand, ci, lz, ld, lw, lzb, static_cast<const Lane<T>*>(nullptr),
-         lzn, ls,
-         P.oscal + slot * kScOut, choice);
+  T* gdv = P.gdv + lane * g.n_nl * P.x.s.ldu;
+  T* qg = P.qg + lane * P.x.s.qsize;
+  const T* x0 = P.x0 + lane * g.nx;
+  T tau = T(1);
+  int trials = 0;
+  while (trials < P.max_bt) {
+    tau *= P.beta;
+    ++trials;
+    // step_sweep starts and ends with a barrier: the previous trial's
+    // commit has finished reading w and the choice
+    const SweepRed<T> cand =
+        step_sweep<T, true>(P.x, lz, ld, tau, lw, nullptr, true, gdv, qg, x0,
+                            sm);
+    const CommitIn<T> ci{kp[KP_RN], kp[KP_NMZ], kp[KP_NMV], sc[SC_RSAFE],
+                         sc[SC_QPOW], tau, kp[KP_G0], kp[KP_G1], kp[KP_G2],
+                         true};
+    commit(P, cand, ci, lz, ld, lw, lzb,
+           static_cast<const Lane<T>*>(nullptr), lzn, ls, out, choice);
+    // the choice was written before commit's barrier: every thread reads
+    // the same
+    if (choice[0] != T(0) || choice[1] != T(0)) break;
+  }
+  if (tid == 0) {
+    out[kOcTrials] = static_cast<T>(trials);
+    atomicAdd(P.count, 1ull);
+    atomicAdd(P.count + 1, static_cast<unsigned long long>(trials));
+  }
 }
 
 // The constants of a launch from the host pointers p (make_consts's order),
@@ -511,37 +550,42 @@ int launch_step(const void* ptrs, const int* dims, const double* coefs,
   return launch_kernel(sp_step_kernel<T>, P, B, stream);
 }
 
-// Pointer order of sp_retrial:
+// Pointer order of sp_backtrack:
 //   [0, 76)     the 4 input pairs: z, cache, fresh sweep, direction
-//   [76, 114)   z_new and s, written at the listed lanes
-//   [114, 133)  the candidate-sweep scratch pair, [k, ...]
-//   133 lanes [k] (int64)  134 x0  135 scalar pack [B, 10]
-//   136 kept scalars [B, 8]  137 output scalars [k, 16]
-//   138 dvec scratch [k, ...]  139 costate scratch [k, ...]
-//   [140, 168)  the sweep's constants, as for sp_step
-constexpr int kRetrialPairs = 7;
+//   [76, 114)   z_new and s, written at the looping lanes
+//   [114, 133)  the candidate-sweep scratch pair, [B, ...]
+//   133 x0  134 scalar pack [B, 10]  135 kept scalars [B, 8]
+//   136 the tau = 1 launch's output scalars [B, 16]
+//   137 output scalars [B, 16]  138 dvec scratch  139 costate scratch
+//   140 counts [2] (int64: lanes looped, trials made; added to)
+//   [141, 169)  the sweep's constants, as for sp_step
+// coefs: as for sp_step, then beta.
+constexpr int kBacktrackPairs = 7;
 
 template <typename T>
-int launch_retrial(const void* ptrs, const int* dims, const double* coefs,
-                   int k, void* stream) {
-  if (k < 0) return static_cast<int>(cudaErrorInvalidValue);
-  RetrialParams<T> P;
+int launch_backtrack(const void* ptrs, const int* dims, const double* coefs,
+                     int B, int max_bt, void* stream) {
+  if (B < 0 || max_bt < 0) return static_cast<int>(cudaErrorInvalidValue);
+  BacktrackParams<T> P;
   void* const* p = static_cast<void* const*>(ptrs);
-  constexpr int base = kRetrialPairs * kPairBlocks;
-  if (!make_params<T>(P, p + base + 7, dims, coefs)) {
+  constexpr int base = kBacktrackPairs * kPairBlocks;
+  if (!make_params<T>(P, p + base + 8, dims, coefs)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Pair<T>* const pairs[] = {&P.z, &P.cache, &P.fresh, &P.d,
                             &P.zn, &P.s, &P.w};
-  set_pairs(pairs, kRetrialPairs, p);
-  P.lanes = static_cast<const int64_t*>(p[base]);
-  P.x0 = static_cast<const T*>(p[base + 1]);
-  P.scal = static_cast<const T*>(p[base + 2]);
-  P.keep = static_cast<const T*>(p[base + 3]);
+  set_pairs(pairs, kBacktrackPairs, p);
+  P.x0 = static_cast<const T*>(p[base]);
+  P.scal = static_cast<const T*>(p[base + 1]);
+  P.keep = static_cast<const T*>(p[base + 2]);
+  P.oscal1 = static_cast<const T*>(p[base + 3]);
   P.oscal = static_cast<T*>(p[base + 4]);
   P.gdv = static_cast<T*>(p[base + 5]);
   P.qg = static_cast<T*>(p[base + 6]);
-  return launch_kernel(sp_retrial_kernel<T>, P, k, stream);
+  P.count = static_cast<unsigned long long*>(p[base + 7]);
+  P.beta = static_cast<T>(coefs[6]);
+  P.max_bt = max_bt;
+  return launch_kernel(sp_backtrack_kernel<T>, P, B, stream);
 }
 
 }  // namespace
@@ -550,17 +594,19 @@ int launch_retrial(const void* ptrs, const int* dims, const double* coefs,
 // C entry points, bound with ctypes.  ptrs: host array of device pointers
 // in the orders above; dims: host int array (sweep_common.cuh's Dim entries,
 // nseg, then nseg (kind, lo, hi) triples); coefs: host double array (gamma,
-// sigma, c1, sigma_k2, lam, lam_sp).  One thread block per lane (per listed
-// lane for the retrial).  Return cudaGetLastError().
+// sigma, c1, sigma_k2, lam, lam_sp, and beta for the backtrack).  One
+// thread block per lane.  Return cudaGetLastError().
 #if SPOCK_PART != 8
 extern "C" int sp_step_f32(const void* ptrs, const int* dims,
                            const double* coefs, int B, void* stream) {
   return spock::launch_step<float>(ptrs, dims, coefs, B, stream);
 }
 
-extern "C" int sp_retrial_f32(const void* ptrs, const int* dims,
-                              const double* coefs, int k, void* stream) {
-  return spock::launch_retrial<float>(ptrs, dims, coefs, k, stream);
+extern "C" int sp_backtrack_f32(const void* ptrs, const int* dims,
+                                const double* coefs, int B,
+                                int max_backtracks, void* stream) {
+  return spock::launch_backtrack<float>(ptrs, dims, coefs, B,
+                                         max_backtracks, stream);
 }
 
 // The shared-memory plan (step_body.cuh's node_plan) into out[4], for
@@ -577,8 +623,10 @@ extern "C" int sp_step_f64(const void* ptrs, const int* dims,
   return spock::launch_step<double>(ptrs, dims, coefs, B, stream);
 }
 
-extern "C" int sp_retrial_f64(const void* ptrs, const int* dims,
-                              const double* coefs, int k, void* stream) {
-  return spock::launch_retrial<double>(ptrs, dims, coefs, k, stream);
+extern "C" int sp_backtrack_f64(const void* ptrs, const int* dims,
+                                const double* coefs, int B,
+                                int max_backtracks, void* stream) {
+  return spock::launch_backtrack<double>(ptrs, dims, coefs, B,
+                                         max_backtracks, stream);
 }
 #endif

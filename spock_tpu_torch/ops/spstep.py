@@ -1,5 +1,6 @@
 """The whole-iteration SuperMann step: one CUDA kernel launch per iteration,
-and one per backtracking retrial that runs only what a retrial changes.
+and one more for all of its backtracking retrials, which runs only what a
+retrial changes.
 
 The counterpart of the JAX package's ``spock_tpu/ops/pallas_spstep.py`` (and
 of its lane-tiled predecessor ``pallas_spstep_lt.py``, whose function is this
@@ -9,13 +10,16 @@ holds it, the residual and the Anderson window-3 direction, the candidate
 sweep at (z, v) + tau d, and the K1 / K2 / fallback choice with the new
 iterate.  It also returns a :class:`StepKeep`: the lane's zbar (as the
 cache pair, the fresh-sweep pair and a flag), the direction d and the
-scalars of phases 1-2.  ``sp_step_retrial`` is a backtracking
-retrial at a new per-lane tau for a list of lanes: z has not moved, so it
-runs the candidate sweep and the commit on the kept zbar and d alone, one
-block per listed lane, and writes z_new and s in place at those lanes.  For
-those lanes it equals ``sp_step_fused`` with no cache at that tau (exactly
+scalars of phases 1-2.  ``sp_step_backtrack`` is the iteration's geometric
+backtracking in one launch of B blocks: a lane that the tau = 1 launch
+left looping makes its trials at tau = beta, beta^2, ... (up to
+``max_backtracks``) in its block and stops at the first acceptance; z has
+not moved, so a trial runs the candidate sweep and the commit on the kept
+zbar and d alone, and writes z_new and s in place at that lane.  A trial
+equals ``sp_step_fused`` with no cache at its tau on that lane (exactly
 when the tau = 1 launch swept afresh; up to rounding when it read a valid
-cache, which holds the sweep at (z, v)).
+cache, which holds the sweep at (z, v)).  Which lanes loop is read on the
+device: the launch needs no host sync, so a CUDA graph can hold it.
 
 Pairs are the port's ``(Primal, Dual)`` with the 19 contiguous [B, rows,
 cols] blocks of ``sweep_kernels.pair_shapes`` (the two polytope blocks None
@@ -26,10 +30,13 @@ has no counterpart here: a pair is passed as it is, and the root input is
 ``z.u[:, :, 0]``.
 
 The [B, 10] scalar pack and the [B, 16] output scalars keep the JAX kernel's
-slot numbers (``SC_*`` and ``OC_*``).  The wrappers take their plain
-versions, ``sp_step_ref`` and ``sp_retrial_ref``, only for tensors that lie
-on the CPU; for CUDA tensors they launch their kernel or raise.
-``LAUNCHES`` counts the kernel launches of each.
+slot numbers (``SC_*`` and ``OC_*``; the backtrack adds its trials in slot
+``OC_TRIALS``).  The wrappers take their plain versions, ``sp_step_ref``
+and ``sp_backtrack_ref`` (a loop of the one-trial ``sp_retrial_ref``), only
+for tensors that lie on the CPU; for CUDA tensors they launch their kernel
+or raise.  ``LAUNCHES`` counts the kernel launches of each, and
+``RETRIALS`` holds, per device, the lanes that backtracked and the trials
+they made, summed on the device (``retrials`` reads them).
 """
 
 from __future__ import annotations
@@ -44,9 +51,11 @@ import torch
 from ..problem import ProblemData, ProblemMeta
 from . import _build, sweep_kernels
 
-LAUNCHES = {"sp_step_fused": 0, "sp_step_retrial": 0}
-# lanes run by the retrial kernel's launches (its blocks)
-RETRIAL_LANES = 0
+LAUNCHES = {"sp_step_fused": 0, "sp_step_backtrack": 0}
+# device -> int64 [2]: the lanes that backtracked and the trials they made,
+# added to by the backtrack (on the card by its kernel, with atomics); made
+# once per device and zeroed in place (a CUDA graph holds its address)
+RETRIALS: dict = {}
 
 # scalar-pack slots (pallas_spstep.py's _SC_*)
 SC_ACTIVE, SC_VALID1, SC_VALID2, SC_CACHE = 0, 1, 2, 3
@@ -57,14 +66,53 @@ N_SC = 10
 OC_K1, OC_K2, OC_LOOP, OC_RN, OC_RT, OC_RSAFE = 0, 1, 2, 3, 4, 5
 OC_XI1, OC_XI2, OC_NMRWZ, OC_NMRWV = 6, 7, 8, 9
 OC_G0, OC_G1, OC_G2 = 10, 11, 12
+OC_TRIALS = 13  # the backtrack's trials made at a lane
 N_OC = 16
 # kept-scalar slots (csrc/sp_step.cu's KP_*): ||r||_M and the inf-norms of
 # M r at (z, v), the Anderson weights, the cache flag; slot 7 is zero
 KP_RN, KP_NMZ, KP_NMV, KP_G0, KP_G1, KP_G2, KP_CACHED = range(7)
 N_KEEP = 8
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_void_p]
+_ARGTYPES = {
+    "sp_step": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_void_p],
+    "sp_backtrack": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                     ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+}
+
+
+def retrial_counts(device) -> torch.Tensor:
+    """The int64 [2] counter of ``device`` (lanes that backtracked, trials
+    made), made zero on first use.  Raises if that use is inside a CUDA
+    graph capture: the counter must outlive every graph that adds to it."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    acc = RETRIALS.get(device)
+    if acc is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the retrial counter of a device is made "
+                               "outside a CUDA graph capture")
+        acc = RETRIALS[device] = torch.zeros(2, dtype=torch.int64,
+                                             device=device)
+    return acc
+
+
+def retrials() -> tuple:
+    """(lanes that backtracked, trials made) summed over the devices since
+    the last ``reset_retrials``; reads the counters (a host sync)."""
+    tot = [0, 0]
+    for acc in RETRIALS.values():
+        lanes, trials = acc.tolist()
+        tot[0] += lanes
+        tot[1] += trials
+    return tuple(tot)
+
+
+def reset_retrials() -> None:
+    """Zero every device's counter in place."""
+    for acc in RETRIALS.values():
+        acc.zero_()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,9 +256,12 @@ def sp_step_ref(data: ProblemData, meta: ProblemMeta, z, v, cache, r_prev,
 def sp_retrial_ref(data: ProblemData, meta: ProblemMeta, z, v,
                    keep: "StepKeep", x0, scal, lanes, z_new, s, gamma, sigma,
                    c1: float, sigma_k2: float, lam: float, lam_sp: float):
-    """The plain PyTorch version of :func:`sp_step_retrial`:
-    ``candidate_sweep_ref`` and the phase-4 commit of :func:`sp_step_ref` on
-    the kept zbar and d of the listed lanes."""
+    """One backtracking trial of the listed lanes (``lanes`` [k], distinct)
+    at the tau of their rows of ``scal``, the building block of
+    :func:`sp_backtrack_ref`: ``candidate_sweep_ref`` and the phase-4 commit
+    of :func:`sp_step_ref` on the kept zbar and d, with z_new and s written
+    at those lanes.  Returns the [k, 16] output scalars of the listed
+    lanes, in their order."""
     from ..algorithms import common
     from ..zv import tmap
 
@@ -240,6 +291,37 @@ def sp_retrial_ref(data: ProblemData, meta: ProblemMeta, z, v,
     return out
 
 
+def sp_backtrack_ref(data: ProblemData, meta: ProblemMeta, z, v,
+                     keep: "StepKeep", x0, scal, oscal, z_new, s, gamma,
+                     sigma, beta: float, max_backtracks: int, c1: float,
+                     sigma_k2: float, lam: float, lam_sp: float):
+    """The plain PyTorch version of :func:`sp_step_backtrack`: the lanes
+    that ``oscal`` (the tau = 1 step's output scalars) leaves looping take
+    :func:`sp_retrial_ref` at tau = beta, beta^2, ... until they accept or
+    have made ``max_backtracks`` trials.  Returns the [B, 16] output
+    scalars (the last trial's at a looping lane, ``oscal``'s elsewhere;
+    trials in slot OC_TRIALS) and the trials of each lane [B]."""
+    B = oscal.shape[0]
+    out = oscal.clone()
+    looping = oscal[:, OC_LOOP] > 0.5
+    tau = torch.full((B,), beta, dtype=oscal.dtype, device=oscal.device)
+    trials = torch.zeros((B,), dtype=torch.int64, device=oscal.device)
+    sc = scal.clone()
+    for _ in range(max_backtracks):
+        lanes = torch.nonzero(looping).flatten()
+        if lanes.numel() == 0:
+            break
+        sc[:, SC_TAU] = tau
+        out[lanes] = sp_retrial_ref(data, meta, z, v, keep, x0, sc, lanes,
+                                    z_new, s, gamma, sigma, c1, sigma_k2,
+                                    lam, lam_sp)
+        trials[lanes] += 1
+        looping = looping.index_copy(0, lanes, out[lanes, OC_LOOP] > 0.5)
+        tau = torch.where(looping, tau * beta, tau)
+    out[:, OC_TRIALS] = trials.to(out.dtype)
+    return out, trials
+
+
 def _empty_pair(sizes, shapes, dtype, device) -> list:
     """The 19 blocks of a pair as views of one allocation (None for an
     absent block)."""
@@ -263,19 +345,21 @@ def _scratch(meta: ProblemMeta, k: int, dtype, device) -> list:
             for n in (t.n_nonleaf * pad4(meta.nu), qsize)]
 
 
-def _launch(name, entry, dtype, device, ptr, data, meta, coefs, count):
-    """Launch ``entry`` of csrc/sp_step.cu on ``count`` blocks; raise on a
-    CUDA error."""
+def _launch(name, entry, dtype, device, ptr, data, meta, coefs, count,
+            *extra):
+    """Launch ``entry`` of csrc/sp_step.cu on ``count`` blocks (``extra``:
+    its int arguments after the count); raise on a CUDA error."""
     ptrs = (ctypes.c_void_p * len(ptr))(*ptr)
     dims = sweep_kernels._dims(data, meta, True)
-    cf = (ctypes.c_double * 6)(*(float(c) for c in coefs))
+    cf = (ctypes.c_double * len(coefs))(*(float(c) for c in coefs))
     suffix = {torch.float32: "f32", torch.float64: "f64"}[dtype]
     fn = getattr(_build.library("sp_step"), f"{entry}_{suffix}")
-    fn.argtypes = _ARGTYPES
+    fn.argtypes = _ARGTYPES[entry]
     fn.restype = ctypes.c_int
     rc = sweep_kernels._call(fn, (ctypes.addressof(ptrs),
                                   ctypes.addressof(dims),
-                                  ctypes.addressof(cf), count), device)
+                                  ctypes.addressof(cf), count, *extra),
+                             device)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
@@ -318,7 +402,7 @@ def sp_step_fused(data: ProblemData, meta: ProblemMeta, z, v, cache, r_prev,
     keep)``: six pairs (the new iterate, the candidate's sweep = the next
     cache, the next r_prev and s_prev, the new Anderson rows), [B, 16]
     scalars (``OC_*`` slots) and the :class:`StepKeep` that
-    :func:`sp_step_retrial` takes."""
+    :func:`sp_step_backtrack` takes."""
     name = "sp_step_fused"
     pairs = [(z, v), cache, r_prev, s_prev, mr_a1, mr_a2, mp_a1, mp_a2]
     if sweep_kernels._on_cpu(*(q[0].s for q in pairs), x0, scal):
@@ -351,51 +435,53 @@ def sp_step_fused(data: ProblemData, meta: ProblemMeta, z, v, cache, r_prev,
                                       scal=kscal))
 
 
-def sp_step_retrial(data: ProblemData, meta: ProblemMeta, z, v,
-                    keep: StepKeep, x0, scal, lanes, z_new, s, gamma, sigma,
-                    c1: float, sigma_k2: float, lam: float, lam_sp: float):
-    """A backtracking retrial of the listed lanes in one launch.
+def sp_step_backtrack(data: ProblemData, meta: ProblemMeta, z, v,
+                      keep: StepKeep, x0, scal, oscal, z_new, s, gamma, sigma,
+                      beta: float, max_backtracks: int, c1: float,
+                      sigma_k2: float, lam: float, lam_sp: float):
+    """The backtracking of every lane that the iteration's tau = 1 launch
+    left looping, in one launch of B blocks.
 
-    z, v, x0 and ``keep`` as given to and returned by the iteration's
-    :func:`sp_step_fused`; scal [B, 10] with each listed lane's r_safe,
-    q_pow and tau (its other slots unread: every listed lane is active);
-    lanes [k] int64, distinct, in [0, B); z_new and s: the pairs that
-    ``sp_step_fused`` returned, written in place at the listed lanes.
-    Returns the [k, 16] output scalars of the listed lanes, in their
-    order."""
-    name = "sp_step_retrial"
-    if sweep_kernels._on_cpu(z.s, v.sby, x0, scal, lanes, keep.scal):
-        return sp_retrial_ref(data, meta, z, v, keep, x0, scal, lanes, z_new,
-                              s, gamma, sigma, c1, sigma_k2, lam, lam_sp)
+    z, v, x0, scal and ``keep`` as given to and returned by the iteration's
+    :func:`sp_step_fused`, oscal its [B, 16] output scalars (a lane loops
+    where its OC_LOOP slot is set), z_new and s the pairs it returned,
+    written in place at the looping lanes.  Each looping lane tries tau =
+    beta, beta^2, ... with its r_safe and q_pow of ``scal`` until K1 or K2
+    accepts or it has made ``max_backtracks`` trials.  Returns the [B, 16]
+    output scalars: a looping lane's last trial's, with its trials in slot
+    OC_TRIALS, and oscal's row elsewhere.  Adds the lanes that looped and
+    their trials to ``retrial_counts``."""
+    name = "sp_step_backtrack"
+    if sweep_kernels._on_cpu(z.s, v.sby, x0, scal, oscal, keep.scal):
+        out, trials = sp_backtrack_ref(
+            data, meta, z, v, keep, x0, scal, oscal, z_new, s, gamma, sigma,
+            beta, max_backtracks, c1, sigma_k2, lam, lam_sp)
+        retrial_counts(oscal.device).add_(torch.stack(
+            [(trials > 0).sum(), trials.sum()]))
+        return out
     if not supported(meta, data):
         raise ValueError(f"{name} kernel: unsupported problem class")
+    if max_backtracks < 0:
+        raise ValueError(f"{name} kernel: max_backtracks < 0")
     device, dtype, B, shapes, ins, consts = sweep_kernels._inputs(
         name, data, meta, z, v)
     ins += _check_pairs(name, [keep.cache, keep.fresh, keep.d, z_new, s],
                         shapes, device, dtype)
-    sweep_kernels._check(name, [x0, scal, keep.scal],
-                         [(B, meta.nx), (B, N_SC), (B, N_KEEP)], device,
-                         dtype)
-    if (lanes.device != device or lanes.dtype != torch.int64
-            or lanes.ndim != 1 or not lanes.is_contiguous()):
-        raise ValueError(f"{name} kernel: lanes must be a contiguous int64 "
-                         f"vector on {device}")
-    k = lanes.shape[0]
-    shapes_k = sweep_kernels.pair_shapes(meta, k)
-    sizes = [0 if a is None else math.prod(a) for a in shapes_k]
-    wscratch = _empty_pair(sizes, shapes_k, dtype, device)
-    oscal = torch.empty((k, N_OC), dtype=dtype, device=device)
-    if k == 0:
-        return oscal
-    scratch = _scratch(meta, k, dtype, device)
+    sweep_kernels._check(name, [x0, scal, keep.scal, oscal],
+                         [(B, meta.nx), (B, N_SC), (B, N_KEEP), (B, N_OC)],
+                         device, dtype)
+    sizes = [0 if a is None else math.prod(a) for a in shapes]
+    wscratch = _empty_pair(sizes, shapes, dtype, device)
+    out = torch.empty((B, N_OC), dtype=dtype, device=device)
+    scratch = _scratch(meta, B, dtype, device)
+    counts = retrial_counts(device)
     ptr = ([sweep_kernels._ptr(a) for a in ins]
            + [sweep_kernels._ptr(a) for a in wscratch]
-           + [lanes.data_ptr(), x0.data_ptr(), scal.data_ptr(),
-              keep.scal.data_ptr(), oscal.data_ptr()]
-           + [a.data_ptr() for a in scratch]
+           + [x0.data_ptr(), scal.data_ptr(), keep.scal.data_ptr(),
+              oscal.data_ptr(), out.data_ptr()]
+           + [a.data_ptr() for a in scratch] + [counts.data_ptr()]
            + [sweep_kernels._ptr(a) for a in consts] + [None] * 4)
-    _launch(name, "sp_retrial", dtype, device, ptr, data, meta,
-            (gamma, sigma, c1, sigma_k2, lam, lam_sp), k)
-    global RETRIAL_LANES
-    RETRIAL_LANES += k
-    return oscal
+    _launch(name, "sp_backtrack", dtype, device, ptr, data, meta,
+            (gamma, sigma, c1, sigma_k2, lam, lam_sp, beta), B,
+            max_backtracks)
+    return out

@@ -58,6 +58,47 @@ def test_import_and_solve_load_no_jax():
     assert "LOADED []" in out.stdout, out.stdout
 
 
+def test_native_oracle_loads_no_jax():
+    """The jax-free native oracle makes its inputs without loading JAX or
+    the JAX package, and names its library under build/spock_tpu_torch/,
+    never the tracked native/libspock_cpu.so (its build and solves are held
+    in tests/test_torch_native.py)."""
+    code = (
+        "import sys\n"
+        "from spock_tpu_torch.baselines import native\n"
+        "from spock_tpu_torch.models import car\n"
+        "nat = native.NativeSolver(car.make_spec(N=3, d=2))\n"
+        "assert nat.L_sq > 0\n"
+        "path = native.library_path()\n"
+        "assert path.parent.name == 'spock_tpu_torch', path\n"
+        "assert path.parent.parent.name == 'build', path\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or"
+        " m.startswith('jax.') or m == 'spock_tpu' or"
+        " m.startswith('spock_tpu.'))\n"
+        "print('LOADED', bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_missing_gxx_raises(monkeypatch, tmp_path):
+    """Without g++ the native oracle's library cannot be built: a solve
+    raises, and no library is loaded in its place."""
+    from spock_tpu_torch.baselines import native
+    from spock_tpu_torch.models import car
+
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    solver = native.NativeSolver(car.make_spec(N=3, d=2))
+    with pytest.raises(RuntimeError, match=r"g\+\+ not found"):
+        solver.solve(np.array([0.1, 0.1]))
+    assert native._LIB is None
+
+
 def test_sources_import_no_jax():
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|jaxlib|spock_tpu)(\.|\s|$)", re.M)
@@ -182,18 +223,19 @@ def _retrial(data, meta):
     z, v = _meta_pair(meta, 2, torch.float64)
     x0 = torch.empty((2, meta.nx), dtype=torch.float64, device="meta")
     scal = torch.empty((2, spstep.N_SC), dtype=torch.float64, device="meta")
-    lanes = torch.empty((1,), dtype=torch.int64, device="meta")
-    return spstep.sp_step_retrial(
-        data, meta, z, v, _meta_keep(meta, 2), x0, scal, lanes,
+    oscal = torch.empty((2, spstep.N_OC), dtype=torch.float64, device="meta")
+    return spstep.sp_step_backtrack(
+        data, meta, z, v, _meta_keep(meta, 2), x0, scal, oscal,
         _meta_pair(meta, 2, torch.float64), _meta_pair(meta, 2, torch.float64),
-        0.2, 0.3, c1=0.99, sigma_k2=0.1, lam=1.0, lam_sp=1.0)
+        0.2, 0.3, 0.5, 8, c1=0.99, sigma_k2=0.1, lam=1.0, lam_sp=1.0)
 
 
 def test_retrial_wrapper_never_falls_back(cpu_problem):
-    """Tensors that are not on the CPU go to the retrial kernel or raise."""
+    """Tensors that are not on the CPU go to the backtrack kernel or
+    raise."""
     data, meta = cpu_problem
     before = dict(spstep.LAUNCHES)
-    with pytest.raises(ValueError, match="sp_step_retrial kernel"):
+    with pytest.raises(ValueError, match="sp_step_backtrack kernel"):
         _retrial(data, meta)
     assert spstep.LAUNCHES == before
 
@@ -252,13 +294,13 @@ def test_step_class_ends_at_32_states():
 
 
 def test_retrial_wrapper_raises_on_per_node_costs(cpu_problem):
-    """The retrial kernel has the step kernel's class: with per-node costs
+    """The backtrack kernel has the step kernel's class: with per-node costs
     a call on tensors that are not on the CPU raises."""
     data, meta = cpu_problem
     data = _per_node_costs(data, meta)
     before = dict(spstep.LAUNCHES)
     with pytest.raises(ValueError,
-                       match="sp_step_retrial kernel: unsupported"):
+                       match="sp_step_backtrack kernel: unsupported"):
         _retrial(data, meta)
     assert spstep.LAUNCHES == before
 
@@ -469,8 +511,8 @@ def _step_case(meta, dtype, device, B=4):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_step_kernel_matches_plain_version_on_the_card(dtype):
     """The SuperMann step kernel against sp_step_ref at a small size, its
-    kept direction and scalars included, then the retrial kernel on a
-    strict subset of the lanes against sp_retrial_ref.  float64: every
+    kept direction and scalars included, then the backtrack kernel on a
+    strict subset of the lanes against sp_backtrack_ref.  float64: every
     output within 1e-9 (1 + max|plain|).  float32: the K1 / K2 / loop
     decisions of each lane, and on the lanes whose decisions agree every
     output within 1e-4 (1 + max|plain|): two sweeps, the Gram sums and the
@@ -485,7 +527,7 @@ def test_step_kernel_matches_plain_version_on_the_card(dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_widened_step_kernel_matches_plain_version_on_the_card(dtype):
-    """The step and retrial kernels against their plain versions on
+    """The step and backtrack kernels against their plain versions on
     per-node risk and polytope rows (their class has uniform costs), with
     the tolerances of the uniform test above."""
     if not torch.cuda.is_available():
@@ -564,20 +606,30 @@ def _step_check(data, meta, dtype, device="cuda"):
     _hold((*got[:6], got[7].d, got[7].scal, got[6]),
           (*ref[:6], ref[7].d, ref[7].scal, ref[6]), dtype)
 
-    # a retrial of a strict subset of the active lanes (3 and 0) at new
-    # taus, on the kept zbar and d: in place into z_new and s at those lanes
-    lanes = torch.tensor([3, 0], device=device)
-    scal2 = scal.clone()
-    scal2[:, spstep.SC_TAU] = torch.tensor([0.5, 0.5, 0.5, 0.125],
-                                           dtype=dtype, device=device)
+    # the backtracking of a strict subset of the lanes (3 and 0), marked
+    # looping in the tau = 1 launch's scalars: up to 3 trials each at tau =
+    # 0.5, 0.25, 0.125 on the kept zbar and d, in place into z_new and s
+    oscal = got[6].clone()
+    oscal[:, spstep.OC_LOOP] = torch.tensor([1, 0, 0, 1], dtype=dtype,
+                                            device=device)
     z_new, s = got[0], got[3]
     z_plain, s_plain = tmap(torch.clone, z_new), tmap(torch.clone, s)
-    out = spstep.sp_step_retrial(data, meta, *pairs[0], got[7], x0, scal2,
-                                 lanes, z_new, s, 0.21, 0.37, **knobs)
+    counts = spstep.retrial_counts(device).clone()
+    out = spstep.sp_step_backtrack(data, meta, *pairs[0], got[7], x0, scal,
+                                   oscal, z_new, s, 0.21, 0.37, 0.5, 3,
+                                   **knobs)
     torch.cuda.synchronize(device)
-    assert spstep.LAUNCHES["sp_step_retrial"] == before["sp_step_retrial"] + 1
-    out_ref = spstep.sp_retrial_ref(data, meta, *pairs[0], got[7], x0, scal2,
-                                    lanes, z_plain, s_plain, 0.21, 0.37,
-                                    **knobs)
+    assert (spstep.LAUNCHES["sp_step_backtrack"]
+            == before["sp_step_backtrack"] + 1)
+    out_ref, trials = spstep.sp_backtrack_ref(
+        data, meta, *pairs[0], got[7], x0, scal, oscal, z_plain, s_plain,
+        0.21, 0.37, 0.5, 3, **knobs)
     # every lane, the untouched ones included
-    _hold((z_new, s, out), (z_plain, s_plain, out_ref), dtype, lanes)
+    _hold((z_new, s, out), (z_plain, s_plain, out_ref), dtype)
+    # the device counter: the two lanes and their trials
+    added = (spstep.retrial_counts(device) - counts).tolist()
+    got_trials = out[:, spstep.OC_TRIALS].long()
+    assert added == [2, int(got_trials.sum())]
+    assert got_trials.tolist()[1:3] == [0, 0]
+    if dtype == torch.float64:
+        assert got_trials.tolist() == trials.tolist()

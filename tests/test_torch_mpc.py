@@ -15,6 +15,7 @@ from spock_tpu_torch.algorithms import supermann as sp
 from spock_tpu_torch.mpc import _plant
 from spock_tpu_torch.solver import zero_dual, zero_primal
 from tests.torch_parity import port_data
+from tests.torch_parity import release_jax_executables  # noqa: F401
 
 torch.set_num_threads(1)
 

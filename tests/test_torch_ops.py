@@ -15,6 +15,7 @@ from spock_tpu_torch import zv
 from spock_tpu_torch.ops import cones, cuda_kernels, linop, prox, riccati
 from tests.torch_parity import (
     assert_close, jax_problem, port_data, rand_pair, to_jax, to_port)
+from tests.torch_parity import release_jax_executables  # noqa: F401
 
 torch.set_num_threads(1)
 

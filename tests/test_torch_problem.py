@@ -17,6 +17,7 @@ from spock_tpu_torch.models import car, server_heat
 from spock_tpu_torch.problem import RICCATI_FIELDS, ProblemData
 from spock_tpu_torch.tree import UniformTree
 from tests.torch_parity import assert_close, rand_pair
+from tests.torch_parity import release_jax_executables  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -9,6 +9,7 @@ import torch
 from spock_tpu.solver import Solver as JSolver
 from spock_tpu_torch.solver import Solver
 from tests.torch_parity import jax_problem, port_data
+from tests.torch_parity import release_jax_executables  # noqa: F401
 
 torch.set_num_threads(1)
 

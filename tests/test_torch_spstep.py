@@ -25,6 +25,7 @@ from spock_tpu_torch.solver import Solver, zero_dual, zero_primal
 from spock_tpu_torch.zv import tmap
 from tests.torch_parity import (
     assert_close, jax_problem, port_data, rand_pair, to_jax, to_port)
+from tests.torch_parity import release_jax_executables  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -185,22 +186,30 @@ def test_fused_iterations_match_composed_body(server_heat_n4, n_it):
 
 
 def test_retrial_path_matches_composed_backtracking(monkeypatch):
-    """Backtracking by retrial launches at the shrunken per-lane tau against
-    sp_body's geometric backtracking, on car N=3 with acceptance rigged so
-    every lane backtracks to the CP fallback: c1 ~ 0 kills K1 and sigma_k2
-    huge kills K2.  Each iteration is one tau = 1 step and one retrial per
-    backtrack, on every looping lane."""
+    """Backtracking by one backtrack launch per iteration, in which each
+    looping lane makes its trials at the shrunken tau, against sp_body's
+    geometric backtracking, on car N=3 with acceptance rigged so every lane
+    backtracks to the CP fallback: c1 ~ 0 kills K1 and sigma_k2 huge kills
+    K2.  Each iteration is one tau = 1 step and one backtrack, whose plain
+    version makes max_backtracks trials, on every looping lane."""
     _, jdata, jmeta = jax_problem("car")
     pdata, pmeta = port_data(jdata, jmeta)
     rng = np.random.default_rng(23)
     x0 = torch.tensor(rng.uniform(-0.3, 0.3, (2, pmeta.nx)))
     opts = sp.SuperMannOpts(c1=1e-9, sigma_k2=1e9, max_backtracks=3)
     calls = []
-    step, retrial = spstep.sp_step_ref, spstep.sp_retrial_ref
+    step, backtrack = spstep.sp_step_ref, spstep.sp_backtrack_ref
+    retrial = spstep.sp_retrial_ref
 
     def counted_step(*args, **kwargs):
         calls.append(("step", args[12][:, spstep.SC_TAU].tolist()))
         return step(*args, **kwargs)
+
+    def counted_backtrack(*args, **kwargs):
+        oscal = args[7]
+        calls.append(("backtrack",
+                      (oscal[:, spstep.OC_LOOP] > 0.5).tolist()))
+        return backtrack(*args, **kwargs)
 
     def counted_retrial(*args, **kwargs):
         scal, lanes = args[6], args[7]
@@ -208,13 +217,17 @@ def test_retrial_path_matches_composed_backtracking(monkeypatch):
         return retrial(*args, **kwargs)
 
     monkeypatch.setattr(spstep, "sp_step_ref", counted_step)
+    monkeypatch.setattr(spstep, "sp_backtrack_ref", counted_backtrack)
     monkeypatch.setattr(spstep, "sp_retrial_ref", counted_retrial)
+    spstep.reset_retrials()
     n_it = 2
     cf = _iterate(pdata, pmeta, x0, opts, n_it, fused=True)
-    # each iteration: the tau = 1 launch, then retrials at 0.5, 0.25, 0.125
-    assert calls == [("step", [1.0, 1.0]), ("retrial", [0.5, 0.5]),
-                     ("retrial", [0.25, 0.25]),
+    # each iteration: the tau = 1 launch, then one backtrack of both lanes,
+    # whose trials are at 0.5, 0.25, 0.125
+    assert calls == [("step", [1.0, 1.0]), ("backtrack", [True, True]),
+                     ("retrial", [0.5, 0.5]), ("retrial", [0.25, 0.25]),
                      ("retrial", [0.125, 0.125])] * n_it
+    assert spstep.retrials() == (2 * n_it, 6 * n_it)
     c = _iterate(pdata, pmeta, x0, opts, n_it, fused=False)
     _compare_iterates(cf, c)
 
@@ -270,19 +283,26 @@ def looping_carry(pdata, pmeta, B_=B, seed=3, max_it=10):
 
 
 def retrial_vs_step(pdata, pmeta, args, out, lanes, tau):
-    """The retrial of ``lanes`` at ``tau`` on the kept zbar and d against
+    """The backtrack with max_backtracks = 1 and beta = ``tau`` (one trial
+    at ``tau`` of the looping ``lanes``, on the kept zbar and d) against
     sp_step_ref with no cache at tau: z_new and s on those lanes, output
-    slots 0-12 (decisions exactly).  Returns the no-cache scalar pack."""
+    slots 0-12 (decisions exactly); the other lanes keep the tau = 1 step's
+    scalars.  Returns the no-cache scalar pack and the trial's scalars of
+    ``lanes``."""
     g = step_size(pdata)
-    scal = args[-1].clone()
-    scal[:, spstep.SC_TAU] = tau
     z_new, s = tmap(torch.clone, out[0]), tmap(torch.clone, out[3])
     before = dict(spstep.LAUNCHES)
-    sc = spstep.sp_step_retrial(pdata, pmeta, args[0], args[1], out[7],
-                                args[9], scal, lanes, z_new, s, g, g,
-                                **KNOBS)
+    sc_all = spstep.sp_step_backtrack(pdata, pmeta, args[0], args[1], out[7],
+                                      args[9], args[-1], out[6], z_new, s, g,
+                                      g, tau, 1, **KNOBS)
     assert spstep.LAUNCHES == before  # CPU tensors: no launch
-    scal_nc = scal.clone()
+    looping = out[6][:, spstep.OC_LOOP] > 0.5
+    np.testing.assert_array_equal(sc_all[~looping].numpy(),
+                                  out[6][~looping].numpy())
+    assert sc_all[lanes, spstep.OC_TRIALS].tolist() == [1.0] * len(lanes)
+    sc = sc_all[lanes]
+    scal_nc = args[-1].clone()
+    scal_nc[:, spstep.SC_TAU] = tau
     scal_nc[:, spstep.SC_CACHE] = 0
     ref = spstep.sp_step_ref(pdata, pmeta, *args[:-1], scal_nc, g, g,
                              **KNOBS)
@@ -305,9 +325,9 @@ def leaves_of(pair):
 
 @pytest.mark.parametrize("k", [1, 2, 3])
 def test_retrial_matches_step_without_cache(problem, k):
-    """On the looping lanes of a real fused carry, the retrial at tau =
-    beta^k (sp_retrial_ref: the candidate sweep and the commit on the kept
-    zbar and d) equals sp_step_ref with no cache at that tau."""
+    """On the looping lanes of a real fused carry, the one-trial backtrack
+    at tau = beta^k (sp_retrial_ref: the candidate sweep and the commit on
+    the kept zbar and d) equals sp_step_ref with no cache at that tau."""
     _, _, pdata, pmeta = problem
     _, args, out, lanes = looping_carry(pdata, pmeta)
     retrial_vs_step(pdata, pmeta, args, out, lanes, 0.5 ** k)
@@ -323,8 +343,8 @@ def _jax_pair(pair):
 
 
 def test_retrial_matches_jax_kernel(problem):
-    """The same retrials against pallas_spstep.sp_step_fused with the
-    retrial pack (no cache, tau = beta^k), on the looping lanes."""
+    """The same one-trial backtracks against pallas_spstep.sp_step_fused
+    with the retrial pack (no cache, tau = beta^k), on the looping lanes."""
     jdata, jmeta, pdata, pmeta = problem
     _, args, out, lanes = looping_carry(pdata, pmeta)
     g = step_size(pdata)
@@ -404,10 +424,12 @@ def _recompute_body(data, meta, tol, opts, phase, gamma=None, sigma=None):
 
 
 def test_farm_retrial_path_matches_recompute_path(problem, monkeypatch):
-    """The warm-started farm on the fused step: retrials on the kept zbar
-    and d for the looping lanes only give the farm of whole-step relaunches
-    with no cache for every lane (plant states, controls, final iterates at
-    1e-10, the same iteration counts)."""
+    """The warm-started farm on the fused step: one backtrack per iteration,
+    whose trials run on the kept zbar and d for the looping lanes only,
+    gives the farm of whole-step relaunches with no cache for every lane
+    (plant states, controls, final iterates at 1e-10, the same iteration
+    counts).  The device counter holds the lanes that looped and their
+    trials."""
     _, _, pdata, pmeta = problem
     rng = np.random.default_rng(7)
     x0 = rng.uniform(-0.5, 0.5, (3, pmeta.nx))
@@ -417,18 +439,29 @@ def test_farm_retrial_path_matches_recompute_path(problem, monkeypatch):
         return mpc.simulate_async(pdata, pmeta, x0, ws, 1e-4, n_steps=3,
                                   device="cpu")
 
-    retrials = []
-    plain = spstep.sp_retrial_ref
+    backtracks, retrials = [], []
+    plain_bt, plain = spstep.sp_backtrack_ref, spstep.sp_retrial_ref
+
+    def counted_bt(*args, **kwargs):
+        out, trials = plain_bt(*args, **kwargs)
+        backtracks.append((int((trials > 0).sum()), int(trials.sum())))
+        return out, trials
 
     def counted(*args, **kwargs):
         retrials.append(int(args[7].numel()))
         return plain(*args, **kwargs)
 
+    monkeypatch.setattr(spstep, "sp_backtrack_ref", counted_bt)
     monkeypatch.setattr(spstep, "sp_retrial_ref", counted)
     before = dict(spstep.LAUNCHES)
+    spstep.reset_retrials()
     got = run()
     assert spstep.LAUNCHES == before
+    assert len(backtracks) == got.total_iterations
     assert retrials and min(retrials) >= 1
+    lanes, trials = spstep.retrials()
+    assert (lanes, trials) == tuple(map(sum, zip(*backtracks)))
+    assert trials == sum(retrials)
     monkeypatch.setattr(sp, "sp_body_fused", _recompute_body)
     ref = run()
     assert got.total_iterations == ref.total_iterations

@@ -26,6 +26,7 @@ from spock_tpu_torch.algorithms import supermann as sp
 from spock_tpu_torch.solver import Solver
 from tests.torch_parity import (
     assert_close, jax_problem, port_data, rand_pair, to_jax, to_port)
+from tests.torch_parity import release_jax_executables  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -22,6 +22,7 @@ from spock_tpu_torch.ops import linop, prox, spstep, sweep_kernels
 from spock_tpu_torch.problem import RICCATI_FIELDS, ProblemData
 from tests.torch_parity import (
     SMALL, assert_close, port_data, port_spec, rand_pair, to_jax, to_port)
+from tests.torch_parity import release_jax_executables  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -14,6 +14,7 @@ from spock_tpu_torch.algorithms import supermann as sp
 from spock_tpu_torch.mpc import _plant
 from spock_tpu_torch.solver import Solver, zero_dual, zero_primal
 from tests.torch_parity import SMALL, port_data
+from tests.torch_parity import release_jax_executables  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -20,6 +20,7 @@ from tests.test_torch_spstep import (
     ATOL, GAMMA, KNOBS, PACKS, RTOL, SIGMA, _compare, _jax_pair,
     looping_carry, retrial_vs_step)
 from tests.torch_parity import SMALL, port_data, rand_pair, to_jax, to_port
+from tests.torch_parity import release_jax_executables  # noqa: F401
 
 torch.set_num_threads(1)
 

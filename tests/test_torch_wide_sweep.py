@@ -8,6 +8,7 @@ import torch
 
 from tests.test_torch_wide_ops import (
     CALLS, fused_parity, kernel_problem_of, support_parity)
+from tests.torch_parity import release_jax_executables  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -2,10 +2,12 @@
 the same inputs, made with numpy from a seed, go to both packages."""
 
 import dataclasses
+import gc
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from spock_tpu import build as jbuild
@@ -16,6 +18,18 @@ from spock_tpu.models import car as jcar
 from spock_tpu.models import server_heat as jsh
 from spock_tpu_torch import interop, problem, risks
 from spock_tpu_torch.tree import UniformTree
+
+
+@pytest.fixture(scope="module", autouse=True)
+def release_jax_executables():
+    """Drops the XLA executables a test module compiled once it is done
+    (a module imports this fixture to use it).  Each XLA:CPU executable
+    holds memory mappings of its own, and a test worker that runs many JAX
+    files can reach the kernel's limit of 65,530 mappings a process
+    (vm.max_map_count), where XLA aborts."""
+    yield
+    jax.clear_caches()
+    gc.collect()
 
 
 def _poly(spec):
