@@ -81,20 +81,51 @@ Phases, each of which raises on failure (the script then exits non-zero):
       native oracle, of the ``_pncost`` farm and of its two solves against
       the port's float64 solve on the card (the oracle rejects per-node
       costs), the root polytope rows, and that the polytope binds (the
-      oracle's objective with it exceeds the one without it).
+      oracle's objective with it exceeds the one without it);
+8. BASELINE config 3, the risk-measure sweep (``examples/risk_sweep.py``:
+   server_heat d=3 nx=nu=6; risk-neutral, AV@R at alpha 0.99, 0.9, 0.5 and
+   0.1, TV(0.3) and EVaR(0.5); cold single-lane float32 ``Solver`` solves
+   to tol 1e-4), built from the port's own ``server_heat`` and ``risks``:
+   a. N=12 (265,720 nodes): each row on its default path, the AV@R, TV and
+      risk-neutral rows on the step kernels at B = 1 (one block each, the
+      costates in device memory; the six at once, each on a stream and a
+      host thread of its own), the EVaR row, whose exponential cone no
+      kernel covers, on the composed path with the plain prox_h* and no
+      kernel launch (its process's counts), in a worker process beside
+      them with 7e's _pncost reference and 8c's float32 solves; every row
+      must converge, lie within 3e-2 of the JAX package's CPU float32
+      objective (``examples/output/risk_sweep_n12.json``) and keep the risk
+      ordering;
+   b. AV@R_0.5 at N=12 on the three paths (fused step, sweep kernels,
+      composed), ms per iteration and the device's busy share, and the
+      step kernels #7 and #6 at B = 1 held against their plain versions
+      (float64) and timed (float32) with their bounds (``[cfg3]`` rows);
+   c. the seven rows at N=4 (40 nodes) in float32 (solved in a worker
+      process beside 8a) against float64 solves at tol 1e-9, the native
+      oracle's and, for EVaR, the port's on the host's CPU (both in the
+      workers from the start): at tol 1e-4 reported, at tol 1e-5 held,
+      root controls within 1e-3 and the objective within 1e-3 relative;
+   d. record mode on the headline problem at B = 128: a cold fused-step
+      ``run_supermann(record=True)`` and a cold ``run_cp(record=True)``,
+      their traces against the final residuals, and one recorded fused
+      iteration captured in a CUDA graph and replayed, equal to the eager
+      call.
 
 Each phase prints the seconds since the script started (``[time]``).
 
 The native oracle's library is built by g++ beside the kernels, and its
-solves for phases 5 and 7e run on the host's CPU in REF_WORKERS worker
-processes, each started as soon as its farm has given the check states,
-so they overlap the card's phases; the farms of 7d and 7b therefore run as
-soon as their kernels are built.  The ``_pncost`` reference (1022 per-node
-matrices, ~4,000 iterations, which took 819.5 s on the host's CPU) runs on
-the card, after the timed phases: the port's plain float64 solve, on the
-composed path, where no kernel runs for a problem with polytope rows (the
-launch counts show it).  The workers and the builds are stopped or waited
-for when the script ends, whatever happens.
+solves for phases 5, 7e and 8c run on the host's CPU in REF_WORKERS worker
+processes, each started as soon as its states are known (8c's, and its
+float64 EVaR solve by the port, at the start), so they overlap the card's
+phases; the farms of 7d and 7b therefore run as soon as their kernels are
+built.  The ``_pncost`` reference (1022 per-node matrices, ~4,000
+iterations, which took 819.5 s on the host's CPU) runs on the card, in a
+worker process beside phase 8a (7e's checks follow 8a), as do 8a's EVaR
+row and 8c's float32 solves: host-bound work that a thread of this process
+would hold up.  The reference is the port's plain float64 solve on the
+composed path, where no kernel runs for a problem with polytope rows (its
+process's launch counts show it).  The workers and the
+builds are stopped or waited for when the script ends, whatever happens.
 
 The last lines are the card, one JSON object with a row per kernel, and the
 result line ``{"ok": true, "device": {...}}``; the line before the card
@@ -203,6 +234,30 @@ BEFORE_GRAPHS = (6.38, 112.2, 0.490, 652.18)
 # the element body's row: server_heat N=4 above the node body's 32 states
 WIDE_NX, WIDE_N = 33, 4
 ELEMENT_CAP = 3000
+# BASELINE config 3 (BASELINE.json configs[2]) as examples/risk_sweep.py
+# runs it: server_heat d=3 nx=nu=6, risk-neutral, AV@R at the alphas below,
+# TV(0.3) and EVaR(0.5), cold single-lane SuperMann solves in float32 to tol
+# 1e-4, at most 4000 iterations; N=12 (265,720 nodes) is the config, N=4
+# the JAX package's --small size
+CFG3_N, CFG3_SMALL_N, CFG3_NX, CFG3_D = 12, 4, 6, 3
+CFG3_TOL, CFG3_CAP = 1e-4, 4000
+CFG3_ALPHAS = (0.99, 0.9, 0.5, 0.1)
+CFG3_TAG = "cfg3"
+# the JAX package's objectives of the same rows (CPU, float32): a
+# same-problem check (AV@R_0.99 reads 1% below the risk-neutral value
+# there), within 3e-2 relative, also the slack of the risk ordering
+CFG3_JAX = "examples/output/risk_sweep_n12.json"
+CFG3_OBJ_RTOL = 3e-2
+# N=4: f32 root controls (absolute) and objective (relative) within 1e-3 of
+# float64 solves at tol 1e-9 (the native oracle takes up to ~67,000
+# iterations there).  The f32 solves held stop at tol 1e-5: at config 3's
+# tol 1e-4 the termination leaves the controls up to ~7e-3 from that
+# solution (within 1e-3 at tol 1e-5), so those solves are run and reported
+# beside them, not held
+CFG3_SMALL_TOL, CFG3_REF_TOL, CFG3_REF_CAP = 1e-3, 1e-9, 1_000_000
+CFG3_SMALL_SOLVE_TOL, CFG3_SMALL_CAP = 1e-5, 20_000
+CFG3_PATH_ITERS = 30  # iterations of each path's timed run (8b)
+CFG3_STEP_REPS = 5  # timed launches of the step kernels at B = 1
 
 
 T0 = time.perf_counter()
@@ -596,16 +651,17 @@ def step_bytes_ops(meta, args, out, consts):
               + nbytes_of(leaves(out[:7])) + nbytes_of(consts))
     per_lane = ((1.0 - cached) * sweep_ops(meta, True, False)
                 + sweep_ops(meta, True, True) + 40 * (meta.nz + meta.nv))
-    return nbytes, B * per_lane
+    return nbytes, scal.shape[0] * per_lane
 
 
-def backtrack_bytes_ops(meta, k, trials, pair_bytes, consts):
+def backtrack_bytes_ops(meta, k, trials, pair_bytes, consts, lanes=B):
     """Bytes and operations of the backtrack of k looping lanes that make
     ``trials`` trials in all: z, d and zbar read and z_new and s written
-    once at those lanes (the pair of one lane is pair_bytes / B), the
+    once at those lanes (the pair of one lane is pair_bytes / lanes), the
     output scalars of every lane, the constants once; the candidate sweep
     and ~20 operations per value for the commit a trial."""
-    nbytes = 5 * k * pair_bytes / B + 2 * B * 16 * 4 + nbytes_of(consts)
+    nbytes = (5 * k * pair_bytes / lanes + 2 * lanes * 16 * 4
+              + nbytes_of(consts))
     return nbytes, trials * (sweep_ops(meta, True, True)
                              + 20 * (meta.nz + meta.nv))
 
@@ -1137,17 +1193,17 @@ def reference_solve(spec, xs):
             bool(ref.converged.all()))
 
 
-def oracle_solve(spec, xs):
+def oracle_solve(spec, xs, tol=1e-5, max_iter=ORACLE_CAP):
     """The native C++ oracle (``spock_tpu_torch.baselines.native``: float64
-    on one CPU core, SuperMann + Anderson, tol 1e-5, a cold solve per
-    state, as bench.py's parity check) from each of the states xs [lanes,
-    nx] (numpy), in a worker process.  Returns (root controls, objectives,
-    seconds, iterations, converged)."""
+    on one CPU core, SuperMann + Anderson, tol 1e-5 unless told otherwise, a
+    cold solve per state, as bench.py's parity check) from each of the
+    states xs [lanes, nx] (numpy), in a worker process.  Returns (root
+    controls, objectives, seconds, iterations, converged)."""
     from spock_tpu_torch.baselines.native import NativeSolver
 
     t0 = time.perf_counter()
     ns = NativeSolver(spec)
-    res = [ns.solve(x, tol=1e-5, max_iter=ORACLE_CAP, algorithm="spock",
+    res = [ns.solve(x, tol=tol, max_iter=max_iter, algorithm="spock",
                     warm_start=False) for x in xs]
     return (np.stack([r["u"][0] for r in res]),
             np.array([r["objective"] for r in res]),
@@ -1332,8 +1388,9 @@ def wide_farms(spec, x0, ws, card, device, opts, pool, built):
 
 
 def wide_checks(w, ws, card, device, opts):
-    """Phases 7a, 7c, the Solvers of 7d and 7e on the state of
-    :func:`wide_farms`.  Returns the numbers, with the kernel rows (their
+    """Phases 7a, 7c and the Solvers of 7d on the state of
+    :func:`wide_farms`; 7e (:func:`wide_solutions`) waits for the
+    ``_pncost`` reference.  Returns the numbers, with the kernel rows (their
     launches from the path that ran them) under "rows"."""
     from spock_tpu_torch import SuperMannOpts
 
@@ -1366,11 +1423,18 @@ def wide_checks(w, ws, card, device, opts):
                       "node")
     mrow["launches"] = broyden["launches"]["metric_apply_fused"]
 
-    # 7e. the solutions; the _pncost reference on the card, after every
-    # timed phase, while the _navar ones finish on the host
-    stamp("7a-7d done")
-    ref_p = reference_solve(w.spec_p, check_states(w.res2_p.xs))
-    stamp("the _pncost reference solve done")
+    return dict(rows=list(prow.values()) + nrows, navar_step=nextra,
+                pncost_metric=mextra, pncost_cp_solve=cp,
+                pncost_broyden_solve=broyden, u_cp=u_cp,
+                u_broyden=u_broyden)
+
+
+def wide_solutions(w, wide, ws, card, device, ref_p):
+    """Phase 7e: the solutions of the wider class, against the native
+    oracle (``_navar``, run in the worker pool) and the port's float64
+    solve on the card (``ref_p``, ``_pncost``: the oracle rejects per-node
+    costs), and the controls of 7d's Solvers."""
+    cp, broyden = wide["pncost_cp_solve"], wide["pncost_broyden_solve"]
     nsol, _ = solution_check(w.data_n, w.meta_n, w.spec_n, w.res2_n.xs, ws,
                              card, device, w.ref_n, ORACLE, tag=NAVAR,
                              ref_free=w.ref_free)
@@ -1378,19 +1442,17 @@ def wide_checks(w, ws, card, device, opts):
                                  ws, card, device, ref_p,
                                  "the port's f64 solve on the card",
                                  tag=PNCOST)
-    solver_controls(((f"cp solve [{PNCOST}]", u_cp, cp),
-                     (f"broyden solve [{PNCOST}]", u_broyden, broyden)),
-                    u_ref, card)
+    solver_controls(((f"cp solve [{PNCOST}]", wide.pop("u_cp"), cp),
+                     (f"broyden solve [{PNCOST}]", wide.pop("u_broyden"),
+                      broyden)), u_ref, card)
     print(f"[paths] ms per farm iteration: {NAVAR} fused step "
           f"{w.nnums['ms_per_farm_iteration']:.2f}, {PNCOST} fused sweep "
           f"{w.pnums['ms_per_farm_iteration']:.2f}; solves/s "
           f"{w.nnums['solves_per_s']:.2f}, {w.pnums['solves_per_s']:.2f} "
           f"[{card}]", flush=True)
-    return dict(rows=list(prow.values()) + nrows, navar_farm=w.nnums,
-                navar_step=nextra, navar_solution=nsol, pncost_farm=w.pnums,
-                pncost_metric=mextra,
-                pncost_solution=psol, pncost_cp_solve=cp,
-                pncost_broyden_solve=broyden)
+    wide.update(navar_farm=w.nnums, navar_solution=nsol,
+                pncost_farm=w.pnums, pncost_solution=psol)
+    return wide
 
 
 def profile_farm(data, meta, res2, ws, card, wall_ms):
@@ -1462,6 +1524,588 @@ def profile_farm(data, meta, res2, ws, card, wall_ms):
     out["graph_kernels_seen"] = out["graphed"] is not None
     print(f"[profile] torch.profiler sees the graph replays' kernels: "
           f"{out['graph_kernels_seen']} [{card}]", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: BASELINE config 3, the risk-measure sweep
+# ---------------------------------------------------------------------------
+
+
+def cfg3_rows(n_stages):
+    """Config 3's seven rows [(name, spec)] at depth ``n_stages`` and its
+    initial state, made as examples/risk_sweep.py makes them: the port's
+    server_heat and risks, p and x0 from default_rng(0)."""
+    import dataclasses
+
+    from spock_tpu_torch import risks
+    from spock_tpu_torch.models import server_heat
+
+    base = server_heat.make_spec(N=n_stages, nx=CFG3_NX, d=CFG3_D)
+    nnl = base.tree.n_nonleaf
+    rng = np.random.default_rng(0)
+    p = risks.rand_probvec(rng, CFG3_D)
+    x0 = rng.uniform(-0.5, 0.5, CFG3_NX)
+    sweep = [("risk_neutral", risks.risk_neutral(p, nnl))]
+    sweep += [(f"avar[{a}]", risks.avar(p, a, nnl)) for a in CFG3_ALPHAS]
+    sweep += [("tv[0.3]", risks.total_variation(p, 0.3, nnl)),
+              ("evar[0.5]", risks.evar(p, 0.5, nnl))]
+    return [(name, dataclasses.replace(base, risk=r)) for name, r in sweep], x0
+
+
+def cfg3_path(data, meta, opts):
+    """The path a default Solver takes for a row: the step kernels, or (a
+    class no kernel covers) the composed iteration with the plain prox_h*."""
+    from spock_tpu_torch.algorithms import supermann as sp
+    from spock_tpu_torch.ops import cuda_kernels, sweep_kernels
+
+    if sp.use_fused_step(data, meta, opts):
+        return "fused step"
+    check(not sweep_kernels.supported(meta, data)
+          and not cuda_kernels.supported(meta),
+          "a config 3 row outside the step kernels' class would take a "
+          "sweep or prox kernel")
+    return "composed, plain"
+
+
+def cfg3_solve(data, meta, x0, out, tol=CFG3_TOL, max_iter=CFG3_CAP,
+               **solver_kw):
+    """One cold single-lane Solver solve on a stream of its own (a thread's
+    work): fills ``out`` with the result and its wall seconds, or the
+    exception it raised."""
+    from spock_tpu_torch.solver import Solver
+
+    try:
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.default_stream())
+        with torch.cuda.stream(stream):
+            t0 = time.perf_counter()
+            res = Solver(data, meta, algorithm="spock", max_iter=max_iter,
+                         **solver_kw).solve(
+                torch.tensor(x0, dtype=data.dtype, device=data.device),
+                tol=tol)
+            stream.synchronize()
+            out.update(res=res, wall_s=time.perf_counter() - t0)
+    except Exception as exc:  # re-raised by the caller
+        out["error"] = exc
+
+
+def cfg3_nums(res, wall_s, path):
+    """A row's numbers from its SolveResult (a single lane)."""
+    iters = int(res.iterations)
+    return dict(objective=float(res.z.s[0]), iterations=iters,
+                converged=bool(res.converged), wall_s=wall_s,
+                ms_per_iteration=1e3 * wall_s / max(iters, 1), path=path)
+
+
+def cfg3_row_line(name, nums, card, note=""):
+    print(f"[cfg3] {name}: objective {nums['objective']:.6f}, "
+          f"{nums['iterations']} iterations, converged {nums['converged']}, "
+          f"{nums['wall_s']:.2f} s, {nums['ms_per_iteration']:.2f} ms per "
+          f"iteration, {nums['path']}{note} [{card}]", flush=True)
+
+
+def cfg3_evar_row():
+    """8a's EVaR row at N = 12 in a worker process of its own (its host
+    work, ~95% of its time, then overlaps the main process's step-kernel
+    rows): a cold f32 Solver solve on its default path, with the process's
+    launch counts set to 0 just before and read just after.  Returns its
+    numbers and those counts."""
+    from spock_tpu_torch import SuperMannOpts, build
+
+    rows, x0 = cfg3_rows(CFG3_N)
+    data, meta = build(dict(rows)["evar[0.5]"], dtype=torch.float32)
+    path = cfg3_path(data, meta, SuperMannOpts())
+    r = {}
+    reset_counts()
+    cfg3_solve(data, meta, x0, r)
+    if "error" in r:
+        raise r["error"]
+    counts = launch_counts()
+    return dict(cfg3_nums(r["res"], r["wall_s"], path), launches=counts)
+
+
+def wall_ms(fn, reps=5):
+    """Median host milliseconds of ``fn()`` up to the card's end of it: the
+    time of an eager call, host launches included."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def exp_cone_share(data, meta, row, card):
+    """The EVaR row's exponential-cone projection (PyTorch operators, eager
+    as in the JAX package) against its plain prox_h* and its iteration, at
+    B = 1 on random dual values: ms per call (host clock, to the card's
+    end) and the lower bound of its share of an iteration, which makes at
+    least two prox_h* calls (the fresh sweep and the candidate's)."""
+    from spock_tpu_torch.ops import cuda_kernels, prox
+    from spock_tpu_torch.ops.cones import project_cone_product
+    from spock_tpu_torch.problem import step_size
+    from spock_tpu_torch.zv import Dual
+
+    g = torch.Generator(device=data.device).manual_seed(0)
+    v = Dual(**{k: torch.randn(sh, generator=g, device=data.device,
+                               dtype=data.dtype)
+                for k, sh in cuda_kernels.block_shapes(meta, 1).items()})
+    sigma = step_size(data)
+    proj_ms = wall_ms(lambda: project_cone_product(v.y, meta.dual_cone))
+    prox_ms = wall_ms(lambda: prox.prox_h_conj(data, meta, v, sigma))
+    share = 2 * proj_ms / row["ms_per_iteration"]
+    print(f"[cfg3] evar[0.5]: the cone projection of y (exp-dual, "
+          f"{meta.tree.n_nonleaf} nodes) {proj_ms:.2f} ms per call, the "
+          f"plain prox_h* {prox_ms:.2f} ms, an iteration "
+          f"{row['ms_per_iteration']:.2f} ms: the projection at least "
+          f"{100 * share:.0f}% of it [{card}]", flush=True)
+    return dict(exp_projection_ms=proj_ms, prox_h_conj_ms=prox_ms,
+                exp_projection_share_min=share)
+
+
+def risk_sweep(card, opts, evar_job):
+    """8a: config 3 at N = 12, seven cold f32 Solver solves at tol 1e-4 on
+    each row's default path.  The six rows on the step kernels at once,
+    each on a stream and a host thread of its own (one block of the card
+    each): the launches in that window must be exactly one sp_step_fused
+    and one sp_step_backtrack per iteration of those rows.  The EVaR row
+    (``evar_job``: :func:`cfg3_evar_row`, submitted to a worker process)
+    runs beside them and must launch no kernel; its cone projection is then
+    timed here (:func:`exp_cone_share`), alone.  Holds convergence, the
+    objectives against the JAX package's CPU f32 objectives (CFG3_JAX,
+    within CFG3_OBJ_RTOL) and the ordering of the risk measures.  Returns
+    the numbers and the step kernels' launches."""
+    from spock_tpu_torch import build
+
+    rows, x0 = cfg3_rows(CFG3_N)
+    with open(CFG3_JAX) as f:
+        jax_rows = {r["risk"]: r for r in json.load(f)["rows"]}
+    built = []
+    for name, spec in rows:
+        data, meta = build(spec, dtype=torch.float32)
+        built.append((name, data, meta, cfg3_path(data, meta, opts)))
+    t = rows[0][1].tree
+    print(f"[cfg3] server_heat N={CFG3_N} d={CFG3_D} nx=nu={CFG3_NX}: "
+          f"{t.n} nodes, {t.n_nonleaf} non-leaf; paths "
+          f"{ {n: p for n, _, _, p in built} } [{card}]", flush=True)
+    check(t.n == 265720 and t.n_nonleaf == 88573, "config 3's tree")
+    sizes = {n: (m.ny, m.nz + m.nv) for n, _, m, _ in built}
+    print("[cfg3] a lane's (z, v) pair by row (ny, floats, MB in f32): "
+          + ", ".join(f"{n} ({ny}, {k}, {4 * k / 1e6:.1f})"
+                      for n, (ny, k) in sizes.items()), flush=True)
+    torch.cuda.synchronize()
+    # the step-kernel rows at once
+    krows = [b for b in built if b[3] == "fused step"]
+    results = {b[0]: {} for b in krows}
+    threads = [threading.Thread(target=cfg3_solve,
+                                args=(b[1], b[2], x0, results[b[0]]))
+               for b in krows]
+    reset_counts()
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    torch.cuda.synchronize()
+    conc_s = time.perf_counter() - t0
+    counts = launch_counts()
+    for name, r in results.items():
+        if "error" in r:
+            raise r["error"]
+    total = sum(int(r["res"].iterations) for r in results.values())
+    expect = {k: 0 for k in counts}
+    expect.update(sp_step_fused=total, sp_step_backtrack=total)
+    check(counts == expect, f"the step-kernel rows launched {counts}, "
+          f"expected {expect}")
+    out = {}
+    for name, _, _, path in krows:
+        r = results[name]
+        out[name] = cfg3_nums(r["res"], r["wall_s"], path)
+        cfg3_row_line(name, out[name], card,
+                      f" (one of {len(krows)} rows at once); launches "
+                      f"{out[name]['iterations']} sp_step_fused + "
+                      f"{out[name]['iterations']} sp_step_backtrack")
+    print(f"[cfg3] the {len(krows)} step-kernel rows at once took "
+          f"{conc_s:.1f} s: {total} iterations, launches {counts} [{card}]",
+          flush=True)
+    # the EVaR row, from its worker
+    evar = evar_job.get()
+    (name, data, meta, path), = [b for b in built if b[3] != "fused step"]
+    check(evar["path"] == path, f"the {name} row took {evar['path']}")
+    check(not any(evar["launches"].values()),
+          f"the {name} row launched kernels: {evar['launches']}")
+    cfg3_row_line(name, evar, card, " (in a worker process, beside the "
+                  "step-kernel rows); launches 0 (all kernels)")
+    out[name] = dict(evar, **exp_cone_share(data, meta, evar, card))
+    # the checks
+    for name, nums in out.items():
+        ref = jax_rows[name]["objective"]
+        nums["jax_cpu_f32_objective"] = ref
+        nums["rel_to_jax"] = abs(nums["objective"] - ref) / abs(ref)
+        print(f"[cfg3] {name}: objective {nums['objective']:.6f} vs the JAX "
+              f"package's {ref} ({CFG3_JAX}, CPU f32, "
+              f"{jax_rows[name]['iters']} iterations): relative "
+              f"{nums['rel_to_jax']:.2e} (limit {CFG3_OBJ_RTOL})",
+              flush=True)
+    for name, nums in out.items():
+        check(nums["converged"], f"config 3 row {name} did not converge in "
+              f"{nums['iterations']} iterations")
+        check(nums["rel_to_jax"] <= CFG3_OBJ_RTOL,
+              f"config 3 row {name}: objective {nums['objective']} vs the "
+              f"JAX package's {nums['jax_cpu_f32_objective']}")
+    chain = ["risk_neutral"] + [f"avar[{a}]" for a in CFG3_ALPHAS]
+    for hi, lo in zip(chain, chain[1:]):
+        check(out[lo]["objective"] >= out[hi]["objective"]
+              * (1 - CFG3_OBJ_RTOL),
+              f"config 3: {lo} below {hi}: risk ordering broken")
+    check(out["evar[0.5]"]["objective"] >= out["avar[0.5]"]["objective"]
+          * (1 - CFG3_OBJ_RTOL), "config 3: EVaR_0.5 below AV@R_0.5")
+    print(f"[cfg3] every row converged, within {CFG3_OBJ_RTOL} of the JAX "
+          f"package's objectives; AV@R does not decrease as alpha falls "
+          f"(risk-neutral as alpha = 1) and EVaR_0.5 >= AV@R_0.5, with that "
+          f"slack [{card}]", flush=True)
+    return dict(rows=out, concurrent_s=conc_s, step_launches=total)
+
+
+def cfg3_paths(card, opts):
+    """8b: AV@R_0.5 at N = 12 on the three paths, CFG3_PATH_ITERS cold
+    iterations each: the fused step (B = 1: one block), the sweep kernels
+    (fused_step=False) and the composed path (fused_sweep=False, the prox_h*
+    kernel).  ms per iteration from an unprofiled run, the device's busy
+    share from a profiled one (its kernel time over the unprofiled wall
+    time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from spock_tpu_torch import build
+
+    rows, x0 = cfg3_rows(CFG3_N)
+    spec = dict(rows)["avar[0.5]"]
+    data, meta = build(spec, dtype=torch.float32)
+    out = {}
+    for label, kw in (("fused step", {}),
+                      ("sweep kernels", dict(fused_step=False)),
+                      ("composed", dict(fused_sweep=False))):
+        r = {}
+        cfg3_solve(data, meta, x0, r, max_iter=CFG3_PATH_ITERS, **kw)  # warm
+        if "error" in r:
+            raise r["error"]
+        reset_counts()
+        r = {}
+        cfg3_solve(data, meta, x0, r, max_iter=CFG3_PATH_ITERS, **kw)
+        counts = {k: c for k, c in launch_counts().items() if c}
+        iters = int(r["res"].iterations)
+        wall_ms = 1e3 * r["wall_s"] / iters
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            rp = {}
+            cfg3_solve(data, meta, x0, rp, max_iter=CFG3_PATH_ITERS, **kw)
+            torch.cuda.synchronize()
+        if "error" in rp:
+            raise rp["error"]
+        dev_us = sum(getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+                     for e in prof.key_averages()
+                     if str(getattr(e, "device_type", "")).endswith("CUDA"))
+        dev_ms = dev_us / 1e3 / iters
+        out[label] = dict(ms_per_iteration=wall_ms, iterations=iters,
+                          device_ms_per_iteration=dev_ms or None,
+                          device_busy_share=(dev_ms / wall_ms) if dev_ms
+                          else None, launches=counts)
+        busy = (f"{100 * dev_ms / wall_ms:.1f}%" if dev_ms
+                else "not measured (the profiler saw no kernel)")
+        print(f"[cfg3 paths] avar[0.5] N={CFG3_N} B=1, {label}: "
+              f"{wall_ms:.2f} ms per iteration over {iters}, device "
+              f"{dev_ms:.2f} ms per iteration, busy {busy}; launches "
+              f"{counts} [{card}]", flush=True)
+    return out, (spec, data, meta, x0)
+
+
+def cfg3_step_rows(cfg, card, opts):
+    """8b, the step kernels at config 3's B = 1 (265,720 nodes, costates in
+    device memory) on a real carry three fused iterations into the AV@R_0.5
+    solve: #7 (tau = 1, the carry's cache flag) and #6 (the backtrack, the
+    lane made to loop), each held in float64 against its plain version and
+    timed in float32 with its byte and operation bound."""
+    from spock_tpu_torch import build
+    from spock_tpu_torch.algorithms import supermann as sp
+    from spock_tpu_torch.ops import spstep, sweep_kernels
+    from spock_tpu_torch.problem import step_size
+    from spock_tpu_torch.solver import zero_dual, zero_primal
+    from spock_tpu_torch.zv import leaves, tmap
+
+    spec, data, meta, x0 = cfg
+    xb = torch.tensor(x0[None], dtype=torch.float32, device=data.device)
+    c = sp.sp_init_fused(meta, xb, zero_primal(meta, (1,), torch.float32),
+                         zero_dual(meta, (1,), torch.float32), opts)
+    bodies = [sp.sp_body_fused(data, meta, CFG3_TOL, opts, phase=ph)
+              for ph in range(3)]
+    for k in range(3):
+        c = bodies[k](c)
+    knobs = dict(c1=opts.c1, sigma_k2=opts.sigma_k2, lam=opts.lam,
+                 lam_sp=opts.lam_sp)
+    g = step_size(data)
+    data64, meta64 = build(spec, dtype=torch.float64)
+    g64 = step_size(data64)
+    consts = sweep_kernels._consts(data, meta)[:sweep_kernels.N_CONSTS]
+    ones = torch.ones_like(c.r_safe)
+    args = sp.step_inputs(c, opts, c.it % 3, ~c.done, c.cache_valid,
+                          c.r_safe, ones)
+    args64 = tmap(lambda a: a.double(), args)
+    rows = []
+    # #7: tau = 1
+    name = row_name("sp_step_fused_tau1", CFG3_TAG)
+    got64 = spstep.sp_step_fused(data64, meta64, *args64, g64, g64, **knobs)
+    ref64 = spstep.sp_step_ref(data64, meta64, *args64, g64, g64, **knobs)
+    torch.cuda.synchronize()
+    err7, _ = hold_step(name, got64[:7], ref64[:7])
+    got = spstep.sp_step_fused(data, meta, *args, g, g, **knobs)
+    nbytes, ops = step_bytes_ops(meta, args, got, consts)
+    rows.append(kernel_row(
+        name, STEP_SOURCE, STEP_ROWS["sp_step_fused_tau1"], err7,
+        time_ms(lambda: spstep.sp_step_fused(data, meta, *args, g, g,
+                                             **knobs),
+                reps=CFG3_STEP_REPS, warmup=1),
+        time_ms(lambda: spstep.sp_step_ref(data, meta, *args, g, g, **knobs),
+                reps=CFG3_STEP_REPS, warmup=1, spin=4 * SPIN_CYCLES),
+        nbytes, ops, card, batch=1))
+    # #6: the backtrack of the lane, made to loop
+    name = row_name("sp_step_backtrack", CFG3_TAG)
+    bt = (opts.beta, opts.max_backtracks)
+
+    def looping(oscal):
+        o = oscal.clone()
+        o[:, spstep.OC_LOOP] = 1.0
+        return o
+
+    o64 = looping(got64[6])
+    zk, sk = tmap(torch.clone, got64[0]), tmap(torch.clone, got64[3])
+    zr, sr = tmap(torch.clone, got64[0]), tmap(torch.clone, got64[3])
+    out64 = spstep.sp_step_backtrack(data64, meta64, *args64[:2], got64[7],
+                                     args64[9], args64[10], o64, zk, sk, g64,
+                                     g64, *bt, **knobs)
+    outr, _ = spstep.sp_backtrack_ref(data64, meta64, *args64[:2], got64[7],
+                                      args64[9], args64[10], o64, zr, sr,
+                                      g64, g64, *bt, **knobs)
+    torch.cuda.synchronize()
+    err6, _ = hold_step(name, (zk, sk, out64), (zr, sr, outr))
+    check(torch.equal(out64[:, spstep.OC_TRIALS], outr[:, spstep.OC_TRIALS]),
+          f"{name}: float64 trials differ from the plain version")
+    o32 = looping(got[6])
+    zt, st = tmap(torch.clone, got[0]), tmap(torch.clone, got[3])
+    trials = int(spstep.sp_step_backtrack(
+        data, meta, *args[:2], got[7], args[9], args[10], o32, zt, st, g, g,
+        *bt, **knobs)[0, spstep.OC_TRIALS])
+    nbytes, ops = backtrack_bytes_ops(meta, 1, trials,
+                                      nbytes_of(leaves(args[:2])), consts,
+                                      lanes=1)
+    rows.append(kernel_row(
+        name, STEP_SOURCE, STEP_ROWS["sp_step_fused"], err6,
+        time_ms(lambda: spstep.sp_step_backtrack(
+            data, meta, *args[:2], got[7], args[9], args[10], o32, zt, st,
+            g, g, *bt, **knobs), reps=CFG3_STEP_REPS, warmup=1),
+        time_ms(lambda: spstep.sp_backtrack_ref(
+            data, meta, *args[:2], got[7], args[9], args[10], o32, zt, st,
+            g, g, *bt, **knobs), reps=CFG3_STEP_REPS, warmup=1,
+            spin=4 * SPIN_CYCLES),
+        nbytes, ops, card, batch=1))
+    plan = spstep.smem_plan(data, meta, torch.float32)
+    print(f"[cfg3 step] the backtrack made {trials} trials; step kernels' "
+          f"plan at B=1, N={CFG3_N}: {plan} [{card}]", flush=True)
+    return rows, dict(backtrack_trials=trials, smem_plan=plan)
+
+
+def cfg3_small_solves():
+    """8c's float32 solves of the seven rows at N = 4 (40 nodes), cold, on
+    each row's default path, at config 3's tol 1e-4 and at
+    CFG3_SMALL_SOLVE_TOL, in a worker process of its own (host-bound at
+    this size, they then overlap 8a).  Returns {row: {tol: (iterations,
+    converged, root controls, objective)}} and each row's path."""
+    from spock_tpu_torch import SuperMannOpts, build
+
+    rows, x0 = cfg3_rows(CFG3_SMALL_N)
+    out, paths = {}, {}
+    for name, spec in rows:
+        data, meta = build(spec, dtype=torch.float32)
+        paths[name] = cfg3_path(data, meta, SuperMannOpts())
+        out[name] = {}
+        for tol in (CFG3_TOL, CFG3_SMALL_SOLVE_TOL):
+            r = {}
+            cfg3_solve(data, meta, x0, r, tol=tol, max_iter=CFG3_SMALL_CAP)
+            if "error" in r:
+                raise r["error"]
+            res = r["res"]
+            out[name][tol] = (int(res.iterations), bool(res.converged),
+                              res.z.u[:, 0].double().cpu().numpy(),
+                              float(res.z.s[0]))
+    return out, paths
+
+
+def cfg3_small(card, solves, refs):
+    """8c: the f32 solves of :func:`cfg3_small_solves` (``solves``, its
+    submitted job) against float64 solves at tol 1e-9 (``refs``: row ->
+    submitted solve): the native oracle's for the rows it takes, the port's
+    on the host's CPU for EVaR.  At config 3's tol 1e-4 the errors are
+    reported; at CFG3_SMALL_SOLVE_TOL the root controls must lie within
+    CFG3_SMALL_TOL and the objective within CFG3_SMALL_TOL relative."""
+    got, paths = solves.get()
+    out = {}
+    for name, by_tol in got.items():
+        u_ref, obj_ref, ref_s, ref_iters = reference(refs[name], name)
+        if name.startswith("evar"):
+            what = "the port's f64 solve on the host's CPU"
+        else:
+            u_ref, obj_ref, what = u_ref[0], float(obj_ref[0]), ORACLE
+        out[name] = dict(path=paths[name], reference=what,
+                         reference_s=ref_s, reference_iterations=ref_iters,
+                         reference_objective=obj_ref)
+        for tol, (iters, conv, u, obj) in by_tol.items():
+            check(conv, f"config 3 N={CFG3_SMALL_N} row {name} did not "
+                  f"converge at tol {tol}")
+            nums = dict(iterations=iters,
+                        controls_max_err=float(np.abs(u - u_ref).max()),
+                        objective_rel_err=abs(obj - obj_ref) / abs(obj_ref))
+            out[name][f"tol {tol}"] = nums
+            held = tol == CFG3_SMALL_SOLVE_TOL
+            print(f"[cfg3 N={CFG3_SMALL_N}] {name}: f32 at tol {tol}, "
+                  f"{iters} iterations on {paths[name]}; root controls "
+                  f"{nums['controls_max_err']:.3e}, objective "
+                  f"{nums['objective_rel_err']:.3e} relative from {what} "
+                  f"(tol {CFG3_REF_TOL}, {ref_iters} iterations, "
+                  f"{ref_s:.1f} s)"
+                  + (f"; limit {CFG3_SMALL_TOL}" if held else
+                     "; reported, not held") + f" [{card}]", flush=True)
+            if held:
+                check(nums["controls_max_err"] <= CFG3_SMALL_TOL
+                      and nums["objective_rel_err"] <= CFG3_SMALL_TOL,
+                      f"config 3 N={CFG3_SMALL_N} row {name}: {nums} from "
+                      "the float64 reference")
+    return out
+
+
+def cfg3_evar_reference():
+    """8c's float64 EVaR reference at N = 4: the port's plain solve at tol
+    1e-9, on the host's CPU in a worker process (40 nodes: host-bound on
+    either device, and ~5x faster here than on the card beside 8a).
+    Returns (root controls, objective, seconds, iterations, converged)."""
+    from spock_tpu_torch import build
+    from spock_tpu_torch.solver import Solver
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    rows, x0 = cfg3_rows(CFG3_SMALL_N)
+    data, meta = build(dict(rows)["evar[0.5]"], dtype=torch.float64,
+                       device="cpu")
+    res = Solver(data, meta, algorithm="spock", max_iter=REF_CAP,
+                 device="cpu").solve(x0, tol=CFG3_REF_TOL)
+    return (res.z.u[:, 0].numpy(), float(res.z.s[0]),
+            time.perf_counter() - t0, int(res.iterations),
+            bool(res.converged))
+
+
+def submit_cfg3_refs(pool):
+    """8c's float64 references (tol 1e-9) of the N = 4 rows, in the worker
+    pool from the start of the run: the native oracle's, and for EVaR
+    (whose exponential cone the oracle does not take) the port's."""
+    from spock_tpu_torch.baselines.native import NativeSolver
+
+    rows, x0 = cfg3_rows(CFG3_SMALL_N)
+    out = {}
+    for name, spec in rows:
+        if spec.risk.kind == "evar":
+            out[name] = pool.apply_async(cfg3_evar_reference)
+            continue
+        NativeSolver(spec)  # raises here for a problem it does not take
+        out[name] = pool.apply_async(
+            oracle_solve, (spec, x0[None], CFG3_REF_TOL, CFG3_REF_CAP))
+    return out
+
+
+def record_checks(data, meta, x0, card, opts):
+    """8d: record mode on the card, on the headline problem at B lanes: a
+    cold fused-step ``run_supermann(record=True)`` and a cold
+    ``run_cp(record=True)``; per lane, the last recorded row is the
+    reported (xi1, xi2), the trace is positive up to it, and the
+    backtracking column holds whole numbers <= max_backtracks.  Then one
+    recorded fused iteration captured in a CUDA graph and replayed: its
+    trace row equals the eager call's (no host sync in a recorded
+    iteration)."""
+    from spock_tpu_torch.algorithms import cp, supermann as sp
+    from spock_tpu_torch.solver import zero_dual, zero_primal
+    from spock_tpu_torch.zv import tmap
+
+    def start():
+        return (zero_primal(meta, (B,), data.dtype),
+                zero_dual(meta, (B,), data.dtype))
+
+    out = {}
+    check(sp.use_fused_step(data, meta, opts), "the headline's fused step")
+    for label, run in (
+            ("run_supermann", lambda: sp.run_supermann(
+                data, meta, x0, *start(), tol=TOL, max_iter=COLD_CAP,
+                opts=opts, record=True)),
+            ("run_cp", lambda: cp.run_cp(data, meta, x0, *start(), tol=TOL,
+                                         max_iter=CP_CAP, record=True))):
+        reset_counts()
+        res = run()
+        counts = {k: c for k, c in launch_counts().items() if c}
+        tr = res.residuals.cpu().numpy()
+        it = res.iterations.cpu().numpy()
+        last = tr[it - 1, np.arange(B)]
+        fin = torch.stack([res.xi1, res.xi2], -1).cpu().numpy()
+        check(np.array_equal(last[:, :2], fin),
+              f"recorded {label}: the last row is not the final residual")
+        check(all(bool(np.all(tr[:n, b, :2] > 0)) for b, n in enumerate(it)),
+              f"recorded {label}: a residual <= 0 in the trace")
+        nums = dict(shape=list(tr.shape), iterations_max=int(it.max()),
+                    converged=int(res.converged.sum()), launches=counts)
+        if label == "run_supermann":
+            rounds = tr[: int(it.max()), :, 2]
+            check(bool(np.all(rounds == np.round(rounds)))
+                  and bool(np.all((rounds >= 0)
+                                  & (rounds <= opts.max_backtracks))),
+                  "recorded run_supermann: backtracking rounds out of range")
+            check(tr.shape[0] == COLD_CAP + 2, "the fused trace's rows")
+            nums["rounds_total"] = int(rounds[:, 0].sum())
+        out[label] = nums
+        print(f"[record] {label} B={B} cold: trace {tr.shape}, "
+              f"{nums['converged']} lanes converged, iterations up to "
+              f"{int(it.max())}, last rows equal the final (xi1, xi2); "
+              f"launches {counts} [{card}]", flush=True)
+    # one recorded fused iteration in a CUDA graph
+    c = sp.sp_init_fused(meta, x0, *start(), opts, max_iter=10, record=True)
+    bodies = [sp.sp_body_fused(data, meta, TOL, opts, phase=ph, record=True)
+              for ph in range(3)]
+    for k in range(3):  # builds the constants and the retrial counter
+        c = bodies[k](c)
+    body = bodies[c.it % 3]
+    def clone(carry):
+        return tmap(lambda a: a.clone() if torch.is_tensor(a) else a, carry)
+
+    eager = body(clone(c))
+    static = clone(c)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body(clone(c))  # warm-up on the capture's stream
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):  # a capture runs nothing
+        captured = body(static)
+    graph.replay()
+    torch.cuda.synchronize()
+    row = c.it
+    check(torch.equal(captured.hist[row], eager.hist[row])
+          and torch.equal(captured.z.u, eager.z.u),
+          "the graphed recorded iteration differs from the eager one")
+    out["graph_row"] = captured.hist[row].cpu().tolist()[:2]
+    print(f"[record] one recorded fused iteration (row {row}) captured in a "
+          f"CUDA graph and replayed: its trace row and z equal the eager "
+          f"call's [{card}]", flush=True)
     return out
 
 
@@ -1552,6 +2196,8 @@ def smoke(card, device, pool, built):
     spec = server_heat.make_spec(N=N, nx=NX, d=D)
     data, meta = build(spec, dtype=torch.float32)
     check(data.device.type == "cuda", "build() did not default to the card")
+    # phase 8c's native-oracle solves: fixed states, so from the start
+    cfg3_refs = submit_cfg3_refs(pool)
 
     # ---- 3. the prox_h* kernel against its plain version ----
     kernels = [prox_kernel_check(data, meta, card)]
@@ -1709,6 +2355,38 @@ def smoke(card, device, pool, built):
     # ---- 7. the wider class: kernel rows, Solvers and solutions ----
     wide = wide_checks(wide_state, ws, card, device, opts)
     kernels += wide.pop("rows") + element_rows
+    stamp("7a-7d done")
+
+    # ---- 8a. BASELINE config 3, the risk-measure sweep at N = 12.  In
+    # worker processes beside its step-kernel rows (host-bound work, which
+    # a thread here would hold up): 7e's _pncost reference, 8a's EVaR row
+    # and 8c's float32 solves ----
+    ref_p = pool.apply_async(reference_solve, (
+        wide_state.spec_p, check_states(wide_state.res2_p.xs)))
+    evar_job = pool.apply_async(cfg3_evar_row)
+    small_job = pool.apply_async(cfg3_small_solves)
+    cfg3 = risk_sweep(card, opts, evar_job)
+    stamp("8a done")
+    ref_p = ref_p.get()
+    small_job.wait()
+
+    # ---- 7e. the wider class's solutions ----
+    wide = wide_solutions(wide_state, wide, ws, card, device, ref_p)
+    stamp("7e done")
+
+    # ---- 8b-8d: the AV@R_0.5 row on the three paths and the step kernels
+    # at B = 1 (8b), the seven rows at N = 4 against float64 (8c), record
+    # mode (8d) ----
+    cfg3["paths"], cfg = cfg3_paths(card, opts)
+    step_rows3, cfg3["step"] = cfg3_step_rows(cfg, card, opts)
+    for row in step_rows3:
+        row["launches"] = cfg3["step_launches"]
+    kernels += step_rows3
+    stamp("8b done")
+    cfg3["small"] = cfg3_small(card, small_job, cfg3_refs)
+    stamp("8c done")
+    cfg3["record"] = record_checks(data, meta, x0, card, opts)
+    stamp("8d done")
     check(all(k["launches"] for k in kernels),
           "a kernel row has no launches on its path")
 
@@ -1718,7 +2396,7 @@ def smoke(card, device, pool, built):
                   composed_farm=cnums, cp_solve=cp, broyden_solve=broyden,
                   controls_max_err=err, profile=prof, wide=wide,
                   element_body_solves=element, ptxas=ptxas, smem_plans=plans,
-                  metric_apply=metric_extra)
+                  metric_apply=metric_extra, risk_sweep=cfg3)
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)

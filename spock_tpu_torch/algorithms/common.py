@@ -188,6 +188,10 @@ class SolveResult:
     status: Any  # [B] int32
     xi1: Any  # [B] final residuals
     xi2: Any  # [B]
+    # with record=True: the per-iteration trace, [max_iter, B, 2] (xi1, xi2)
+    # from run_cp, [max_iter (+ 2 fused), B, 3] (xi1, xi2, backtracking
+    # rounds) from run_supermann
+    residuals: Any = None
 
     @property
     def converged(self):

@@ -22,11 +22,14 @@ from .common import (
 
 def run_cp(data: ProblemData, meta: ProblemMeta, x0, z0: Primal, v0: Dual,
            tol, max_iter: int, gamma=None, sigma=None,
-           lam: float = 1.0, fused_sweep: bool = True) -> SolveResult:
+           lam: float = 1.0, fused_sweep: bool = True,
+           record: bool = False) -> SolveResult:
     """Solve to tolerance from a warm start (z0, v0); everything batched
     [B, ...], x0: [B, nx].  ``fused_sweep``: one kernel launch per sweep
     where the sweep kernel covers the problem (default), the composed path
-    when False."""
+    when False.  ``record``: keep every iteration's (xi1, xi2), every lane's
+    whether active or not, in ``result.residuals`` [max_iter, B, 2] (rows
+    after the last iteration stay zero)."""
     if gamma is None or sigma is None:
         gamma = sigma = step_size(data)
     tol = float(tol)
@@ -39,6 +42,8 @@ def run_cp(data: ProblemData, meta: ProblemMeta, x0, z0: Primal, v0: Dual,
     niter = torch.zeros((B,), dtype=torch.int32, device=device)
     xi1 = torch.full((B,), float("inf"), dtype=dtype, device=device)
     xi2 = torch.full((B,), float("inf"), dtype=dtype, device=device)
+    hist = (torch.zeros((max_iter, B, 2), dtype=dtype, device=device)
+            if record else None)
     it = 0
     while it < max_iter and not bool(done.all()):
         zbar, vbar = cp_sweep(data, meta, z, v, gamma, sigma, x0,
@@ -52,6 +57,8 @@ def run_cp(data: ProblemData, meta: ProblemMeta, x0, z0: Primal, v0: Dual,
                                 gamma, sigma)
         conv, res0_new = check_termination(x1, x2, res0, tol)
         active = ~done
+        if record:
+            hist[it] = torch.stack([x1, x2], dim=-1)
         z = bwhere(active, z_new, z)
         v = bwhere(active, v_new, v)
         res0 = torch.where(active[:, None], res0_new, res0)
@@ -63,4 +70,5 @@ def run_cp(data: ProblemData, meta: ProblemMeta, x0, z0: Primal, v0: Dual,
     return SolveResult(
         z=z, v=v, iterations=niter,
         status=torch.where(done, 0, 1).to(torch.int32), xi1=xi1, xi2=xi2,
+        residuals=hist,
     )

@@ -29,6 +29,12 @@ makes its own trials at its shrunken tau.  An iteration of the fused step
 reads nothing on the host, so a CUDA graph can hold it
 (``mpc.simulate_async``'s ``iters_per_launch``).
 It is the counterpart of the JAX package's ``SPOCK_FUSED_STEP``.
+
+``record`` keeps a per-iteration trace of (xi1, xi2, backtracking rounds)
+on the carry, written in place at row ``it``: [max_iter, B, 3] on the
+composed body and [max_iter + 2, B, 3] on the fused one, as in the JAX
+package.  The rounds are batch-wide: the retrial rounds the iteration ran,
+which is the most trials any lane made.
 """
 
 from __future__ import annotations
@@ -96,6 +102,16 @@ class SPCarry:
     rnorm_c: Any  # [B]
     nMrz_c: Any  # [B]
     nMrv_c: Any  # [B]
+    hist: Any = None  # [max_iter, B, 3] trace with record=True, else None
+
+
+def _record(hist, it: int, xi1, xi2, rounds) -> None:
+    """Row ``it`` of the trace: (xi1, xi2, rounds), rounds a 0-d tensor or
+    an int; written in place, with no host sync."""
+    hist[it] = torch.stack(
+        [xi1, xi2, torch.as_tensor(rounds, dtype=xi1.dtype,
+                                   device=xi1.device).expand_as(xi1)],
+        dim=-1)
 
 
 def _ravel_pair(z: Primal, v: Dual):
@@ -205,8 +221,10 @@ def _run_backtracks(candidate, opts, looping1, z_a, v_a, r_safe_a, xi1_a,
 
 
 def sp_init(meta: ProblemMeta, x0, z0: Primal, v0: Dual,
-            opts: SuperMannOpts = SuperMannOpts()) -> SPCarry:
-    """The initial SuperMann carry for a batch of lanes."""
+            opts: SuperMannOpts = SuperMannOpts(), max_iter: int = 1000,
+            record: bool = False) -> SPCarry:
+    """The initial SuperMann carry for a batch of lanes (with ``record``, a
+    zero [max_iter, B, 3] trace)."""
     B = x0.shape[0]
     dtype, device = x0.dtype, x0.device
     if opts.direction == "anderson":
@@ -250,14 +268,18 @@ def sp_init(meta: ProblemMeta, x0, z0: Primal, v0: Dual,
         rnorm_c=full(0.0),
         nMrz_c=full(0.0),
         nMrv_c=full(0.0),
+        hist=(torch.zeros((max_iter, B, 3), dtype=dtype, device=device)
+              if record else None),
     )
 
 
 def sp_body(data: ProblemData, meta: ProblemMeta, tol,
             opts: SuperMannOpts = SuperMannOpts(), gamma=None, sigma=None,
-            fused_sweep: bool = True):
+            fused_sweep: bool = True, record: bool = False):
     """Returns the one-iteration transition function carry -> carry, for
-    outer drivers (the async MPC farm) to embed in their own loops."""
+    outer drivers (the async MPC farm) to embed in their own loops.  With
+    ``record`` the carry's trace (from ``sp_init(record=True)``) gets the
+    iteration's row."""
     if opts.direction not in ("anderson", "broyden", "residual"):
         raise ValueError(f"unknown direction {opts.direction!r}")
     if gamma is None or sigma is None:
@@ -362,6 +384,8 @@ def sp_body(data: ProblemData, meta: ProblemMeta, tol,
         # per-lane cache validity: the lane accepted this exact tau=1
         # candidate, or is/became done (its sweep results are never read)
         cache_valid = k1_first | c.done | conv
+        if record:
+            _record(c.hist, c.it, xi1, xi2, bt.bt - 1)
 
         active = ~c.done
         return SPCarry(
@@ -386,6 +410,7 @@ def sp_body(data: ProblemData, meta: ProblemMeta, tol,
             rnorm_c=cache[2],
             nMrz_c=cache[3],
             nMrv_c=cache[4],
+            hist=c.hist,
         )
 
     return body
@@ -423,6 +448,7 @@ class SPCarryF:
     rnorm_c: Any  # [B] the cache's ||r||_M and inf-norms of M r
     nMrz_c: Any
     nMrv_c: Any
+    hist: Any = None  # [max_iter + 2, B, 3] trace with record=True, else None
 
 
 def root_u_carry(sp):
@@ -440,8 +466,11 @@ def use_fused_step(data: ProblemData, meta: ProblemMeta, opts: SuperMannOpts,
 
 
 def sp_init_fused(meta: ProblemMeta, x0, z0: Primal, v0: Dual,
-                  opts: SuperMannOpts = SuperMannOpts()) -> SPCarryF:
-    """The initial fused-step carry for a batch of lanes."""
+                  opts: SuperMannOpts = SuperMannOpts(), max_iter: int = 1000,
+                  record: bool = False) -> SPCarryF:
+    """The initial fused-step carry for a batch of lanes (with ``record``,
+    a zero [max_iter + 2, B, 3] trace: the JAX package's 3-phase loop may
+    run two iterations past max_iter)."""
     B = x0.shape[0]
     dtype, device = x0.dtype, x0.device
 
@@ -461,6 +490,8 @@ def sp_init_fused(meta: ProblemMeta, x0, z0: Primal, v0: Dual,
         it=0,
         cache_valid=full(False, torch.bool),
         rnorm_c=full(0.0), nMrz_c=full(0.0), nMrv_c=full(0.0),
+        hist=(torch.zeros((max_iter + 2, B, 3), dtype=dtype, device=device)
+              if record else None),
     )
 
 
@@ -486,12 +517,14 @@ def step_inputs(c: SPCarryF, opts: SuperMannOpts, phase: int, act, cache,
 
 
 def sp_body_fused(data: ProblemData, meta: ProblemMeta, tol,
-                  opts: SuperMannOpts, phase: int, gamma=None, sigma=None):
+                  opts: SuperMannOpts, phase: int, gamma=None, sigma=None,
+                  record: bool = False):
     """One fused SuperMann iteration at history phase ``phase`` (= it mod
     3): carry -> carry, one sp_step_fused launch at tau = 1 and one
     sp_step_backtrack launch, with no host sync.  The MR/MP slots of phase
     - 1 and phase - 2 are the rows of age 1 and 2; the new rows go to slot
-    ``phase``."""
+    ``phase``.  With ``record`` the carry's trace gets the iteration's row,
+    its rounds the most trials of a lane, taken on the device."""
     if gamma is None or sigma is None:
         gamma = sigma = step_size(data)
     tol = float(tol)
@@ -523,6 +556,8 @@ def sp_body_fused(data: ProblemData, meta: ProblemMeta, tol,
         k1_first = sc[:, spstep.OC_K1] > 0.5
 
         conv, res0 = check_termination(xi1, xi2, c.res0, tol)
+        if record:
+            _record(c.hist, c.it, xi1, xi2, sc_bt[:, spstep.OC_TRIALS].max())
         return SPCarryF(
             x0=c.x0,
             z=z_new[0],
@@ -544,6 +579,7 @@ def sp_body_fused(data: ProblemData, meta: ProblemMeta, tol,
             rnorm_c=sc[:, spstep.OC_RT],
             nMrz_c=sc[:, spstep.OC_NMRWZ],
             nMrv_c=sc[:, spstep.OC_NMRWV],
+            hist=c.hist,
         )
 
     return body
@@ -553,16 +589,19 @@ def run_supermann(data: ProblemData, meta: ProblemMeta, x0, z0: Primal,
                   v0: Dual, tol, max_iter: int,
                   opts: SuperMannOpts = SuperMannOpts(), gamma=None,
                   sigma=None, fused_sweep: bool = True,
-                  fused_step: bool = True) -> SolveResult:
-    """Solve to tolerance from a warm start (z0, v0); batched [B, ...]."""
+                  fused_step: bool = True,
+                  record: bool = False) -> SolveResult:
+    """Solve to tolerance from a warm start (z0, v0); batched [B, ...].
+    ``record``: the per-iteration trace in ``result.residuals``."""
     if use_fused_step(data, meta, opts, fused_sweep, fused_step):
-        c = sp_init_fused(meta, x0, z0, v0, opts)
+        c = sp_init_fused(meta, x0, z0, v0, opts, max_iter, record)
         bodies = [sp_body_fused(data, meta, tol, opts, phase=ph, gamma=gamma,
-                                sigma=sigma) for ph in range(3)]
+                                sigma=sigma, record=record)
+                  for ph in range(3)]
     else:
-        c = sp_init(meta, x0, z0, v0, opts)
+        c = sp_init(meta, x0, z0, v0, opts, max_iter, record)
         bodies = [sp_body(data, meta, tol, opts, gamma=gamma, sigma=sigma,
-                          fused_sweep=fused_sweep)]
+                          fused_sweep=fused_sweep, record=record)]
     while c.it < max_iter and not bool(c.done.all()):
         c = bodies[c.it % len(bodies)](c)
     return SolveResult(
@@ -572,4 +611,5 @@ def run_supermann(data: ProblemData, meta: ProblemMeta, x0, z0: Primal,
         status=torch.where(c.done, 0, 1).to(torch.int32),
         xi1=c.xi1,
         xi2=c.xi2,
+        residuals=c.hist,
     )

@@ -20,6 +20,7 @@ kernel.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -29,6 +30,9 @@ from . import _build
 from .prox import prox_h_conj
 
 LAUNCHES = 0
+# every wrapper adds to its launch counts under this lock: a run may launch
+# from several host threads (chip_smoke.py's config 3 rows)
+COUNT_LOCK = threading.Lock()
 
 # kind codes of the dual-cone row segments (same as csrc/prox_h_conj.cu and
 # csrc/cp_sweep.cu)
@@ -139,6 +143,11 @@ def prox_h_conj_fused(data: ProblemData, meta: ProblemMeta, v: Dual,
         )
     if rc != 0:
         raise RuntimeError(f"prox_h_conj kernel launch failed: CUDA error {rc}")
-    global LAUNCHES
-    LAUNCHES += 1
+    _count()
     return Dual(**dict(zip(DUAL_BLOCKS, outs)))
+
+
+def _count() -> None:
+    global LAUNCHES
+    with COUNT_LOCK:
+        LAUNCHES += 1

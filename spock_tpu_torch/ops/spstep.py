@@ -362,7 +362,7 @@ def _launch(name, entry, dtype, device, ptr, data, meta, coefs, count,
                              device)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    sweep_kernels.count(LAUNCHES, name)
 
 
 def smem_plan(data: ProblemData, meta: ProblemMeta, dtype) -> dict:

@@ -360,7 +360,15 @@ def _launch(name, lib, dtype, device, ptr, dims, *args) -> None:
                device)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    count(LAUNCHES, name)
+
+
+def count(counts: dict, *keys) -> None:
+    """Add one to each of ``keys`` of a wrapper's launch counts, under the
+    wrappers' lock."""
+    with cuda_kernels.COUNT_LOCK:
+        for k in keys:
+            counts[k] += 1
 
 
 def _empty(shapes, dtype, device) -> list:
@@ -411,7 +419,7 @@ def _sweep(name, data, meta, z, v, gamma, sigma, x0, metric, direction=None):
     _launch(name, "cp_sweep", dtype, device, ptr, _dims(data, meta, True),
             float(gamma), float(sigma), int(metric),
             int(direction is not None), BODY_CODE[body], B)
-    LAUNCHES[f"cp_sweep_{body}_body"] += 1
+    count(LAUNCHES, f"cp_sweep_{body}_body")
     return outs, mrs, scal
 
 
@@ -469,5 +477,5 @@ def metric_apply_fused(data: ProblemData, meta: ProblemMeta, z: Primal,
     _launch(name, "metric_apply", dtype, device, ptr,
             _dims(data, meta, False), float(gamma), float(sigma),
             BODY_CODE[body], B)
-    LAUNCHES[f"metric_apply_{body}_body"] += 1
+    count(LAUNCHES, f"metric_apply_{body}_body")
     return _pair(outs)

@@ -8,7 +8,7 @@ risk epigraph satisfies
 
 Cones are described statically (tuples of ``(kind, dim)``) while the
 numeric data ``(E, F, b)`` are stacked per node.  Same constructions as
-``spock_tpu/risks.py``; the exponential cone (EVaR) is not ported yet.
+``spock_tpu/risks.py``, EVaR's exponential cone included.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from typing import Tuple
 import numpy as np
 
 # A cone product is a tuple of (kind, dim) pairs over contiguous segments of
-# the y vector. kind in {"zero", "nonneg", "nonpos", "reals", "soc"}.
+# the y vector. kind in {"zero", "nonneg", "nonpos", "reals", "soc", "exp"}.
 ConeSpec = Tuple[Tuple[str, int], ...]
 
 _DUALS = {
@@ -28,6 +28,9 @@ _DUALS = {
     "nonneg": "nonneg",
     "nonpos": "nonpos",
     "soc": "soc",
+    # the exponential cone's dual, projected by Moreau in ops.cones
+    "exp": "exp_dual",
+    "exp_dual": "exp",
 }
 
 
@@ -49,6 +52,9 @@ class RiskSpec:
       F: [n_nonleaf, ny, nf] equality-coupling matrix.
       b: [n_nonleaf, ny] support vector.
       cone: product-cone spec of K (y must lie in K*, the dual).
+      kind/params: the named risk family, where there is one (EVaR:
+        ``("evar", (p, alpha))``), which the scipy oracle solves in its
+        own smooth form.
     """
 
     E: np.ndarray
@@ -125,6 +131,42 @@ def total_variation(p: np.ndarray, r: float, n_nonleaf: int) -> RiskSpec:
 def risk_neutral(p: np.ndarray, n_nonleaf: int) -> RiskSpec:
     """Risk-neutral expectation, encoded as AV@R with alpha = 1."""
     return avar(p, 1.0, n_nonleaf)
+
+
+def evar(p: np.ndarray, alpha: float, n_nonleaf: int) -> RiskSpec:
+    """Uniform entropic value-at-risk, EVaR_alpha(X) = max{mu'X :
+    KL(mu || p) <= -ln alpha}, a KL ball written with exponential cones in
+    the form  A = {mu : exists nu, b - E mu - F nu in K}:
+
+      rows 0..d-1 :  mu_k                in R+          (mu >= 0)
+      row  d      :  1 - 1'mu            in {0}         (sum to one)
+      row  d+1    :  r - 1'nu            in R+          (KL budget, r = -ln a)
+      rows d+2..  :  (-nu_k, mu_k, p_k)  in K_exp       (mu_k ln(mu_k/p_k)
+                                                         <= nu_k), per k.
+
+    ny = 4d + 2, nf = d auxiliary variables nu.
+    """
+    p = np.asarray(p, dtype=np.float64)
+    d = p.shape[0]
+    r = -float(np.log(alpha))
+    ny = 4 * d + 2
+    E = np.zeros((ny, d))
+    F = np.zeros((ny, d))
+    b = np.zeros(ny)
+    E[:d, :] = -np.eye(d)
+    E[d, :] = 1.0
+    b[d] = 1.0
+    F[d + 1, :] = 1.0
+    b[d + 1] = r
+    for k in range(d):
+        row = d + 2 + 3 * k
+        F[row, k] = 1.0  # x: -nu_k = b - F nu
+        E[row + 1, k] = -1.0  # y: mu_k
+        b[row + 2] = p[k]  # z: p_k
+    cone: ConeSpec = (("nonneg", d), ("zero", 1), ("nonneg", 1)) + tuple(
+        ("exp", 3) for _ in range(d))
+    return dataclasses.replace(_uniform(E, F, b, cone, n_nonleaf),
+                               kind="evar", params=(tuple(p.tolist()), alpha))
 
 
 def rand_probvec(rng: np.random.Generator, d: int) -> np.ndarray:

@@ -14,12 +14,17 @@ identical so that arrays move between the two packages unchanged:
 * the realization ("w") index of a node is its sibling index ``k``.
 
 Every parent/child data movement is therefore a contiguous slice or reshape
-of the node axis.  All fields are plain Python ints.
+of the node axis.  The reference's own numbering interleaves the children
+instead (child k of parent i at stage-local ``i*d + k``):
+:meth:`UniformTree.perm_to_reference` maps one onto the other for flat-layout
+interop (``utils.refvec``).  All fields are plain Python ints.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+import numpy as np
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,3 +107,17 @@ class UniformTree:
         t = self.stage_of(j)
         loc = j - self.stage_offset(t)
         return loc // self.stage_size(t - 1)
+
+    def perm_to_reference(self) -> np.ndarray:
+        """perm[our_id] = reference_id (both 0-based, the reference's child
+        k of parent i at stage-local i*d + k).  Stage-major in both."""
+        perm = np.zeros(self.n, dtype=np.int64)
+        # stage by stage: a node's reference id follows its parent's
+        for t in range(1, self.N):
+            m = self.stage_size(t - 1)
+            off, off_p = self.stage_offset(t), self.stage_offset(t - 1)
+            parent_loc = perm[off_p: off_p + m] - off_p  # [m]
+            for k in range(self.d):
+                perm[off + k * m: off + (k + 1) * m] = (
+                    off + parent_loc * self.d + k)
+        return perm

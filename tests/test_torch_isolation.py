@@ -12,6 +12,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -84,6 +85,41 @@ def test_native_oracle_loads_no_jax():
     assert "LOADED []" in out.stdout, out.stdout
 
 
+def test_oracles_and_utilities_load_no_jax(tmp_path):
+    """The EVaR risk, the scipy and ADMM oracles and the utilities load and
+    run without JAX or the JAX package: an EVaR projection, an ADMM solve,
+    a reference-layout round trip and a checkpoint."""
+    code = (
+        "import sys, numpy as np, torch\n"
+        "from spock_tpu_torch import build, risks\n"
+        "from spock_tpu_torch.baselines import admm_ref, scipy_ref\n"
+        "from spock_tpu_torch.models import car\n"
+        "from spock_tpu_torch.ops import cones\n"
+        "from spock_tpu_torch.solver import zero_dual, zero_primal\n"
+        "from spock_tpu_torch.utils import checkpoint, profiling, refvec\n"
+        "r = risks.evar(np.array([0.3, 0.7]), 0.5, 3)\n"
+        "p = cones.project_cone_product(torch.ones(1, r.ny, 3),"
+        " risks.dual_cone(r.cone))\n"
+        "assert bool(torch.isfinite(p).all())\n"
+        "spec = car.make_spec(N=3, d=2)\n"
+        "assert admm_ref.solve(spec, np.array([.1, .1]))['converged']\n"
+        "data, meta = build(spec, dtype=torch.float64, device='cpu')\n"
+        "z = zero_primal(meta, (1,), torch.float64, 'cpu')\n"
+        "refvec.primal_from_ref(meta, refvec.primal_to_ref(meta, z))\n"
+        "v = zero_dual(meta, (1,), torch.float64, 'cpu')\n"
+        f"checkpoint.save_state({str(tmp_path / 's.npz')!r}, z, v)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or"
+        " m.startswith('jax.') or m == 'spock_tpu' or"
+        " m.startswith('spock_tpu.'))\n"
+        "print('LOADED', bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 def test_missing_gxx_raises(monkeypatch, tmp_path):
     """Without g++ the native oracle's library cannot be built: a solve
     raises, and no library is loaded in its place."""
@@ -106,6 +142,38 @@ def test_sources_import_no_jax():
     assert len(files) > 10
     for f in files:
         assert not pattern.search(f.read_text()), f
+
+
+def test_launch_counts_survive_threads():
+    """The wrappers' launch counts take every increment when many host
+    threads launch at once (chip_smoke.py runs config 3's rows so)."""
+    threads, per = 16, 2000
+    before = (cuda_kernels.LAUNCHES, sweep_kernels.LAUNCHES["cp_sweep_fused"],
+              spstep.LAUNCHES["sp_step_fused"])
+
+    def work():
+        for _ in range(per):
+            cuda_kernels._count()
+            sweep_kernels.count(sweep_kernels.LAUNCHES, "cp_sweep_fused")
+            sweep_kernels.count(spstep.LAUNCHES, "sp_step_fused")
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        pool = [threading.Thread(target=work) for _ in range(threads)]
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in pool)
+    finally:
+        sys.setswitchinterval(interval)
+    after = (cuda_kernels.LAUNCHES, sweep_kernels.LAUNCHES["cp_sweep_fused"],
+             spstep.LAUNCHES["sp_step_fused"])
+    assert [a - b for a, b in zip(after, before)] == [threads * per] * 3
+    cuda_kernels.LAUNCHES = before[0]
+    sweep_kernels.LAUNCHES["cp_sweep_fused"] = before[1]
+    spstep.LAUNCHES["sp_step_fused"] = before[2]
 
 
 def test_tf32_is_off():

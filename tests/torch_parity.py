@@ -99,7 +99,8 @@ def port_spec(spec):
         cost=problem.Cost(Q=spec.cost.Q, R=spec.cost.R, QN=spec.cost.QN),
         dynamics=problem.Dynamics(A=spec.dynamics.A, B=spec.dynamics.B),
         risk=risks.RiskSpec(E=spec.risk.E, F=spec.risk.F, b=spec.risk.b,
-                            cone=spec.risk.cone),
+                            cone=spec.risk.cone, kind=spec.risk.kind,
+                            params=spec.risk.params),
         constraints=problem.Box(*(getattr(spec.constraints, f) for f in (
             "x_min", "x_max", "u_min", "u_max"))),
         polytope=None if poly is None else problem.Polytope(
