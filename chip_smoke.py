@@ -109,7 +109,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
       ``run_supermann(record=True)`` and a cold ``run_cp(record=True)``,
       their traces against the final residuals, and one recorded fused
       iteration captured in a CUDA graph and replayed, equal to the eager
-      call.
+      call;
+9. BASELINE config 4 (``examples/bigtree_scaling.py``'s: server_heat N=15
+   nx=nu=4 d=3, 7,174,453 nodes, the band -2 <= 1'x <= 2 at every node,
+   one lane, float32), alone on the card after phase 8:
+   a. its build, timed, and the kernels #7 (tau = 1, no cache), #6 (the
+      lane made to loop), #4, #3 and #2 at B = 1 on it, each held in
+      float64 against its plain version (the kernel's outputs wait on the
+      host while the plain version runs) and timed in float32 (median of
+      3); the rows carry their kernel's launches on the main path, since
+      config 4's own solve launches none;
+   b. its cold solve to tol 1e-3 (at most 1000 iterations) through
+      ``parallel.bigtree.run_sp_sharded`` on ``parallel.mesh.make_mesh()``,
+      a one-rank NCCL group (the partition stage 0: the share is the whole
+      tree, the reductions go through NCCL), with the counts set to 0 just
+      before and read just after (the composed path: none); iterations, ms
+      per iteration, peak device memory, collectives per iteration, the
+      band at every node, the device's busy share over 5 profiled
+      iterations, and one SuperMann iteration and 20 node-sharded CP
+      iterations bitwise against the unsharded ``sp_body`` and ``Solver``;
+   c. the headline farm lane-sharded on that mesh (``shard_batch``,
+      ``replicate``, ``gather_batch``) on the main path (graphed fused
+      step), 2 cold steps, bitwise equal to the unsharded farm.
 
 Each phase prints the seconds since the script started (``[time]``).
 
@@ -259,6 +280,25 @@ CFG3_SMALL_SOLVE_TOL, CFG3_SMALL_CAP = 1e-5, 20_000
 CFG3_PATH_ITERS = 30  # iterations of each path's timed run (8b)
 CFG3_STEP_REPS = 5  # timed launches of the step kernels at B = 1
 
+# BASELINE config 4 (BASELINE.json configs[3]) as examples/bigtree_scaling.py
+# builds it: server_heat N=15 nx=nu=4 d=3, 7,174,453 nodes, the band
+# -2 <= 1'x <= 2 at every node, x0 = (0.3, -0.2, 0.1, 0.05), float32, one
+# lane; its cold SuperMann solve to tol 1e-3 within 1000 iterations
+CFG4_N, CFG4_NX, CFG4_D, CFG4_NODES = 15, 4, 3, 7_174_453
+CFG4_X0 = (0.3, -0.2, 0.1, 0.05)
+CFG4_BAND, CFG4_BAND_TOL = 2.0, 1e-2  # tests/test_node_sharding.py's check
+CFG4_TOL, CFG4_CAP = 1e-3, 1000
+CFG4_TAG = "cfg4"
+CFG4_REPS = 3  # timed launches of each kernel at B = 1
+CFG4_PROFILE_ITERS = 5
+CFG4_CP_ITERS = 20
+# the node-sharded operators at a split stage on one rank (the stage four
+# ranks would split): CFG4_STAGE_CP_ITERS CP iterations and one SuperMann
+# iteration against the unsharded ones, each within CFG4_STAGE_RTOL of
+# (1 + the largest |value| it compares): f32 roundoff, some 80 units in the
+# last place
+CFG4_STAGE_RANKS, CFG4_STAGE_CP_ITERS, CFG4_STAGE_RTOL = 4, 5, 1e-5
+
 
 T0 = time.perf_counter()
 
@@ -346,15 +386,26 @@ def abs_err(got, ref) -> float:
     return float(torch.where(got == ref, 0.0, (got - ref).abs()).max())
 
 
+def to_host(tree):
+    """Every tensor of a tree copied to the host (the card's copies are
+    freed with the tree)."""
+    from spock_tpu_torch.zv import tmap
+
+    return tmap(lambda a: a.cpu() if torch.is_tensor(a) else a, tree)
+
+
 def hold(name, got, ref, scales=None, rtol=KERNEL_RTOL):
     """max|kernel - plain| over the output leaves; each must lie within
-    rtol (1 + scale), scale = max|plain| unless given."""
+    rtol (1 + scale), scale = max|plain| unless given.  A kernel output
+    kept on the host is compared leaf by leaf on the plain version's
+    device."""
     from spock_tpu_torch.zv import leaves
 
     got, ref = leaves(got), leaves(ref)
     check(len(got) == len(ref), f"{name}: {len(got)} outputs, plain {len(ref)}")
     max_err = 0.0
     for i, (g, r) in enumerate(zip(got, ref)):
+        g = g.to(r.device)
         # an infinite output (the step's r_safe of a lane that never took
         # K1) must equal the plain version's
         check(bool((torch.isfinite(g) | (g == r)).all()),
@@ -673,7 +724,7 @@ def hold_step(name, got, ref, lanes=None):
     Returns the largest error and the errors by slot."""
     from spock_tpu_torch.zv import tmap
 
-    gs, rs = got[-1], ref[-1]
+    gs, rs = got[-1].to(ref[-1].device), ref[-1]
     check(bool((gs[:, :3] == rs[:, :3]).all()),
           f"{name}: float64 K1/K2 decisions differ from the plain version")
     pick = (lambda a: a) if lanes is None else (lambda a: a[lanes])
@@ -1824,12 +1875,17 @@ def cfg3_paths(card, opts):
     return out, (spec, data, meta, x0)
 
 
-def cfg3_step_rows(cfg, card, opts):
+def cfg3_step_rows(cfg, card, opts, tag=CFG3_TAG, tol=CFG3_TOL,
+                   reps=CFG3_STEP_REPS, no_cache=False, data64=None):
     """8b, the step kernels at config 3's B = 1 (265,720 nodes, costates in
     device memory) on a real carry three fused iterations into the AV@R_0.5
-    solve: #7 (tau = 1, the carry's cache flag) and #6 (the backtrack, the
-    lane made to loop), each held in float64 against its plain version and
-    timed in float32 with its byte and operation bound."""
+    solve: #7 (tau = 1, the carry's cache flag, or none with ``no_cache``)
+    and #6 (the backtrack, the lane made to loop), each held in float64
+    against its plain version and timed in float32 (median of ``reps``)
+    with its byte and operation bound; rows named ``name[tag]`` (9a runs it
+    on config 4, with its float64 build ``data64``).  #7's float64 kernel
+    outputs wait on the host while the plain version runs, and what is done
+    with is freed, so that the card holds one float64 carry."""
     from spock_tpu_torch import build
     from spock_tpu_torch.algorithms import supermann as sp
     from spock_tpu_torch.ops import spstep, sweep_kernels
@@ -1841,39 +1897,47 @@ def cfg3_step_rows(cfg, card, opts):
     xb = torch.tensor(x0[None], dtype=torch.float32, device=data.device)
     c = sp.sp_init_fused(meta, xb, zero_primal(meta, (1,), torch.float32),
                          zero_dual(meta, (1,), torch.float32), opts)
-    bodies = [sp.sp_body_fused(data, meta, CFG3_TOL, opts, phase=ph)
+    bodies = [sp.sp_body_fused(data, meta, tol, opts, phase=ph)
               for ph in range(3)]
     for k in range(3):
         c = bodies[k](c)
     knobs = dict(c1=opts.c1, sigma_k2=opts.sigma_k2, lam=opts.lam,
                  lam_sp=opts.lam_sp)
     g = step_size(data)
-    data64, meta64 = build(spec, dtype=torch.float64)
+    if data64 is None:
+        data64, _ = build(spec, dtype=torch.float64)
+    meta64 = meta
     g64 = step_size(data64)
     consts = sweep_kernels._consts(data, meta)[:sweep_kernels.N_CONSTS]
     ones = torch.ones_like(c.r_safe)
-    args = sp.step_inputs(c, opts, c.it % 3, ~c.done, c.cache_valid,
-                          c.r_safe, ones)
+    cache = torch.zeros_like(c.cache_valid) if no_cache else c.cache_valid
+    args = sp.step_inputs(c, opts, c.it % 3, ~c.done, cache, c.r_safe, ones)
+    del c, bodies
     args64 = tmap(lambda a: a.double(), args)
     rows = []
     # #7: tau = 1
-    name = row_name("sp_step_fused_tau1", CFG3_TAG)
-    got64 = spstep.sp_step_fused(data64, meta64, *args64, g64, g64, **knobs)
-    ref64 = spstep.sp_step_ref(data64, meta64, *args64, g64, g64, **knobs)
-    torch.cuda.synchronize()
-    err7, _ = hold_step(name, got64[:7], ref64[:7])
+    name = row_name("sp_step_fused_tau1", tag)
+    got64 = list(spstep.sp_step_fused(data64, meta64, *args64, g64, g64,
+                                      **knobs))
+    host7 = to_host(tuple(got64[:7]))
+    for j in (1, 2, 4, 5):  # #6 reads z_new, s, the scalars and what it kept
+        got64[j] = None
+    ref64 = spstep.sp_step_ref(data64, meta64, *args64, g64, g64,
+                               **knobs)[:7]
+    err7, _ = hold_step(name, host7, ref64)
+    del host7, ref64
     got = spstep.sp_step_fused(data, meta, *args, g, g, **knobs)
     nbytes, ops = step_bytes_ops(meta, args, got, consts)
     rows.append(kernel_row(
         name, STEP_SOURCE, STEP_ROWS["sp_step_fused_tau1"], err7,
         time_ms(lambda: spstep.sp_step_fused(data, meta, *args, g, g,
                                              **knobs),
-                reps=CFG3_STEP_REPS, warmup=1),
+                reps=reps, warmup=0),
         time_ms(lambda: spstep.sp_step_ref(data, meta, *args, g, g, **knobs),
-                reps=CFG3_STEP_REPS, warmup=1, spin=4 * SPIN_CYCLES),
+                reps=reps, warmup=1, spin=4 * SPIN_CYCLES),
         nbytes, ops, card, batch=1))
     # #6: the backtrack of the lane, made to loop
-    name = row_name("sp_step_backtrack", CFG3_TAG)
+    name = row_name("sp_step_backtrack", tag)
     bt = (opts.beta, opts.max_backtracks)
 
     def looping(oscal):
@@ -1894,6 +1958,8 @@ def cfg3_step_rows(cfg, card, opts):
     err6, _ = hold_step(name, (zk, sk, out64), (zr, sr, outr))
     check(torch.equal(out64[:, spstep.OC_TRIALS], outr[:, spstep.OC_TRIALS]),
           f"{name}: float64 trials differ from the plain version")
+    del zk, sk, zr, sr, out64, outr, got64, args64
+    torch.cuda.empty_cache()
     o32 = looping(got[6])
     zt, st = tmap(torch.clone, got[0]), tmap(torch.clone, got[3])
     trials = int(spstep.sp_step_backtrack(
@@ -1906,15 +1972,15 @@ def cfg3_step_rows(cfg, card, opts):
         name, STEP_SOURCE, STEP_ROWS["sp_step_fused"], err6,
         time_ms(lambda: spstep.sp_step_backtrack(
             data, meta, *args[:2], got[7], args[9], args[10], o32, zt, st,
-            g, g, *bt, **knobs), reps=CFG3_STEP_REPS, warmup=1),
+            g, g, *bt, **knobs), reps=reps, warmup=0),
         time_ms(lambda: spstep.sp_backtrack_ref(
             data, meta, *args[:2], got[7], args[9], args[10], o32, zt, st,
-            g, g, *bt, **knobs), reps=CFG3_STEP_REPS, warmup=1,
+            g, g, *bt, **knobs), reps=reps, warmup=1,
             spin=4 * SPIN_CYCLES),
         nbytes, ops, card, batch=1))
     plan = spstep.smem_plan(data, meta, torch.float32)
-    print(f"[cfg3 step] the backtrack made {trials} trials; step kernels' "
-          f"plan at B=1, N={CFG3_N}: {plan} [{card}]", flush=True)
+    print(f"[{tag} step] the backtrack made {trials} trials; step kernels' "
+          f"plan at B=1, N={meta.tree.N}: {plan} [{card}]", flush=True)
     return rows, dict(backtrack_trials=trials, smem_plan=plan)
 
 
@@ -2109,6 +2175,420 @@ def record_checks(data, meta, x0, card, opts):
     return out
 
 
+def cfg4_spec():
+    """BASELINE config 4 as examples/bigtree_scaling.py builds it: the
+    port's server_heat N=15 nx=4 d=3 with the band -2 <= 1'x <= 2 at every
+    non-leaf and leaf node."""
+    import dataclasses
+
+    from spock_tpu_torch import problem
+    from spock_tpu_torch.models import server_heat
+
+    spec = server_heat.make_spec(N=CFG4_N, nx=CFG4_NX, d=CFG4_D)
+    ones = np.ones((1, CFG4_NX))
+    lo, hi = np.array([-CFG4_BAND]), np.array([CFG4_BAND])
+    return dataclasses.replace(spec, polytope=problem.Polytope(
+        Gx=ones, Gu=np.zeros((1, CFG4_NX)), lo=lo, hi=hi, GxN=ones, loN=lo,
+        hiN=hi))
+
+
+def cfg4_build(card):
+    """9a: config 4 built in float32 on the card (the offline phase: the
+    Riccati factors and projectors in float64 numpy, ||L||^2 by power
+    iteration on the card), timed."""
+    from spock_tpu_torch import build
+
+    spec = cfg4_spec()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    data, meta = build(spec, dtype=torch.float32)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t = meta.tree
+    check(t.n == CFG4_NODES, f"config 4 has {t.n} nodes, not {CFG4_NODES}")
+    nums = dict(build_s=build_s, L_sq=float(data.L_sq), nodes=t.n,
+                nonleaf=t.n_nonleaf, leaves=t.n_leaf,
+                pair_bytes=4 * (meta.nz + meta.nv))
+    print(f"[cfg4] build: server_heat N={CFG4_N} nx={CFG4_NX} d={CFG4_D} "
+          f"with the band, {t.n} nodes ({t.n_nonleaf} non-leaf, {t.n_leaf} "
+          f"leaves), a lane's (z, v) {nums['pair_bytes']} bytes in float32; "
+          f"build {build_s:.3f} s, ||L||^2 {nums['L_sq']:.6f} [{card}]",
+          flush=True)
+    return spec, data, meta, nums
+
+
+def cfg4_sweep_rows(data, data64, meta, card):
+    """9a: #2, #3 and #4 on config 4 at B = 1, one launch each on random
+    inputs drawn on the card: in float64 against the plain version (within
+    1e-9 (1 + scale); the dot products' scale is sum |a_i b_i|; the kernel's
+    outputs wait on the host while the plain version runs) and timed in
+    float32 on the same inputs rounded (median of CFG4_REPS, a spin kernel
+    ahead)."""
+    from spock_tpu_torch.algorithms import common
+    from spock_tpu_torch.ops import linop, sweep_kernels
+    from spock_tpu_torch.problem import step_size
+    from spock_tpu_torch.zv import leaves, sub, tmap
+
+    meta64 = meta
+
+    def inputs(dt):
+        gen = torch.Generator(device=data.device)
+        gen.manual_seed(1)
+
+        def pair():
+            return sweep_kernels.new_pair(meta, 1, lambda s: torch.randn(
+                s, generator=gen, dtype=torch.float64,
+                device=data.device).to(dt))
+
+        (z, v), (dz, dv) = pair(), pair()
+        x0 = torch.tensor([CFG4_X0], dtype=dt, device=data.device)
+        tau = torch.tensor([0.6], dtype=dt, device=data.device)
+        return z, v, dz, dv, x0, tau
+
+    def calls(d_, m_, z, v, dz, dv, x0, tau):
+        g = step_size(d_)
+        return {
+            "cp_sweep_fused": (
+                lambda: sweep_kernels.cp_sweep_fused(d_, m_, z, v, g, g, x0),
+                lambda: common.cp_sweep_ref(d_, m_, z, v, g, g, x0)),
+            "cp_sweep_metric_fused": (
+                lambda: sweep_kernels.cp_sweep_metric_fused(d_, m_, z, v, g,
+                                                            g, x0),
+                lambda: common.cp_sweep_metric_ref(d_, m_, z, v, g, g, x0)),
+            "candidate_sweep_fused": (
+                lambda: sweep_kernels.candidate_sweep_fused(
+                    d_, m_, z, v, dz, dv, tau, g, g, x0),
+                lambda: common.candidate_sweep_ref(d_, m_, z, v, dz, dv, tau,
+                                                   g, g, x0)),
+        }
+
+    body = sweep_kernels.sweep_body(meta, data, torch.float32)
+    check(body == "node", f"config 4 takes the {body} body of the sweeps")
+    consts = sweep_kernels._consts(data, meta)[:sweep_kernels.N_CONSTS]
+    rows = []
+    for name in ("candidate_sweep_fused", "cp_sweep_metric_fused",
+                 "cp_sweep_fused"):
+        # float64: kernel and plain version, compared on the host
+        z, v, dz, dv, x0, tau = inputs(torch.float64)
+        kernel, plain = calls(data64, meta64, z, v, dz, dv, x0, tau)[name]
+        got = to_host(kernel())
+        ref = plain()
+        scales = {}
+        if name != "cp_sweep_fused":
+            g = step_size(data64)
+            dot = 2 * len(leaves(ref[:2]))
+            base = (z, v)
+            if name == "candidate_sweep_fused":
+                base = tmap(lambda a, b: a + tau.reshape(
+                    (1,) + (1,) * (a.ndim - 1)) * b, (z, v), (dz, dv))
+            r = sub(base, (ref[0], ref[1]))
+            scales[dot] = float(sum(
+                (a.abs() * b.abs()).sum() for a, b in zip(
+                    leaves(r), leaves(ref[2:4]))))
+            if name == "candidate_sweep_fused":
+                md = linop.metric_apply(data64, meta64, dz, dv, g, g)
+                scales[dot + 3] = float(sum(
+                    (a.abs() * b.abs()).sum() for a, b in zip(
+                        leaves(r), leaves(md))))
+                del md
+            del r, base
+        del z, v, dz, dv
+        err = hold(row_name(name, CFG4_TAG), got, ref, scales,
+                   rtol=STEP_RTOL64)
+        del got, ref
+        torch.cuda.empty_cache()
+        # float32: timed
+        ins = inputs(torch.float32)
+        kernel, plain = calls(data, meta, *ins)[name]
+        out = kernel()
+        torch.cuda.synchronize()
+        nbytes = nbytes_of(leaves(tuple(
+            ins[:2] + ((ins[2], ins[3], ins[5]) if name ==
+                       "candidate_sweep_fused" else ()) + (ins[4],)))
+            + leaves(out) + consts)
+        del out
+        ops = sweep_ops(meta, name != "cp_sweep_fused",
+                        name == "candidate_sweep_fused")
+        source, replaces = SWEEP_KERNELS[name]
+        rows.append(kernel_row(
+            row_name(name, CFG4_TAG), source, replaces, err,
+            time_ms(kernel, reps=CFG4_REPS, warmup=0),
+            time_ms(plain, reps=CFG4_REPS, warmup=1, spin=4 * SPIN_CYCLES),
+            nbytes, ops, card, batch=1))
+        del ins, kernel, plain
+        torch.cuda.empty_cache()
+    return rows
+
+
+def cfg4_rows(spec, data, meta, card, opts):
+    """9a: kernels #7, #6 (the step rows of 8b, #7 with no cache), #4, #3
+    and #2 held in float64 and timed in float32 on config 4 at B = 1."""
+    from spock_tpu_torch import build
+
+    data64, _ = build(spec, dtype=torch.float64)
+    rows, step = cfg3_step_rows(
+        (spec, data, meta, np.array(CFG4_X0)), card, opts, tag=CFG4_TAG,
+        tol=CFG4_TOL, reps=CFG4_REPS, no_cache=True, data64=data64)
+    stamp("9a step rows done")
+    rows += cfg4_sweep_rows(data, data64, meta, card)
+    del data64
+    torch.cuda.empty_cache()
+    return rows, step
+
+
+def carry_err(a, b) -> float:
+    """max |a - b| over the floating-point tensors of two SuperMann
+    carries (equal values, infinities too, differ by 0)."""
+    import dataclasses
+
+    from spock_tpu_torch.zv import leaves
+
+    worst = 0.0
+    for f in dataclasses.fields(a):
+        for x, y in zip(leaves(getattr(a, f.name)),
+                        leaves(getattr(b, f.name))):
+            if torch.is_tensor(x) and x.is_floating_point():
+                worst = max(worst, abs_err(x, y))
+    return worst
+
+
+def cfg4_solve(data, meta, card, opts):
+    """9b: the cold converged config 4 solve through
+    ``bigtree.run_sp_sharded`` on ``mesh.make_mesh()`` (one rank, NCCL;
+    the partition stage k = 0, the share the whole tree), f32, tol 1e-3 in
+    at most 1000 iterations, with the launch counts set to 0 just before
+    and read just after (the composed path: none).  Then its ms per
+    iteration, the device's busy share over CFG4_PROFILE_ITERS profiled
+    iterations, its peak memory and collectives; the band at every node;
+    one iteration from the same carry against the unsharded composed
+    ``sp_body``, and CFG4_CP_ITERS ``run_cp_sharded`` iterations against
+    ``Solver(algorithm="cp", fused_sweep=False)``, both bitwise at k = 0;
+    and the same two holds with the tree split at the stage
+    CFG4_STAGE_RANKS ranks would split (one rank holding every column, so
+    that every boundary exchange runs on the card), within CFG4_STAGE_RTOL,
+    with their collectives counted."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from spock_tpu_torch.algorithms import supermann as sp
+    from spock_tpu_torch.parallel import bigtree, mesh as pmesh
+    from spock_tpu_torch.solver import Solver, zero_dual, zero_primal
+    from spock_tpu_torch.zv import leaves
+
+    mesh = pmesh.make_mesh()
+    backend = dist.get_backend(mesh.group)
+    check(mesh.size == 1 and backend == "nccl",
+          f"the one-card mesh is {backend} over {mesh.size} ranks")
+    x0 = torch.tensor([CFG4_X0], dtype=torch.float32, device=mesh.device)
+
+    def solve(max_iter, stats=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, _ = bigtree.run_sp_sharded(data, meta, x0, CFG4_TOL, max_iter,
+                                        mesh, opts=opts, stats=stats)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_counts()
+    stats = {}
+    res, wall_s = solve(CFG4_CAP, stats)
+    launches = {k: c for k, c in launch_counts().items() if c}
+    peak = torch.cuda.max_memory_allocated()
+    iters, status = int(res.iterations[0]), int(res.status[0])
+    band = res.z.x[0].sum(0)  # 1'x at every node
+    lo, hi = float(band.min()), float(band.max())
+    objective = float(res.z.s[0, 0])
+    nums = dict(iterations=iters, status=status, wall_s=wall_s,
+                ms_per_iteration=1e3 * wall_s / max(iters, 1),
+                objective=objective, band=(lo, hi), peak_bytes=peak,
+                held_bytes=held,
+                xi=(float(res.xi1[0]), float(res.xi2[0])), stats=stats,
+                launches=launches)
+    print(f"[cfg4 solve] run_sp_sharded on a one-rank {backend} mesh "
+          f"(stage {stats['stage']}): status {status}, {iters} iterations, "
+          f"{wall_s:.2f} s, {nums['ms_per_iteration']:.2f} ms per iteration,"
+          f" objective {objective:.6f}, xi {nums['xi']}, 1'x in "
+          f"[{lo:.6f}, {hi:.6f}], peak device memory {peak / 1e9:.2f} GB "
+          f"({held / 1e9:.2f} GB of it held before the solve began: the "
+          f"solve's own {(peak - held) / 1e9:.2f} GB), "
+          f"launches {launches}; collectives per iteration "
+          f"{stats['count']:.2f} ({stats['by_kind']}), "
+          f"{stats['bytes']:.1f} bytes against a "
+          f"{stats['iterate_bytes']} byte iterate [{card}]", flush=True)
+    del res
+    check(status == 0, f"config 4 did not reach tol {CFG4_TOL} in "
+          f"{CFG4_CAP} iterations (xi {nums['xi']})")
+    check(not launches, f"the composed config 4 solve launched {launches}")
+    check(math.isfinite(objective), "config 4's objective is not finite")
+    check(lo >= -CFG4_BAND - CFG4_BAND_TOL and hi <= CFG4_BAND + CFG4_BAND_TOL,
+          f"config 4's band 1'x in [{lo}, {hi}] leaves [-2, 2] by more than "
+          f"{CFG4_BAND_TOL}")
+    # the device's busy share over a few profiled iterations from cold
+    _, short_s = solve(CFG4_PROFILE_ITERS)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        solve(CFG4_PROFILE_ITERS)
+    dev_us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+                 for e in prof.key_averages()
+                 if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    nums["device_ms_per_iteration"] = dev_us / 1e3 / CFG4_PROFILE_ITERS
+    nums["busy_share"] = (dev_us / 1e6 / short_s) if dev_us else None
+    print(f"[cfg4 solve] {CFG4_PROFILE_ITERS} iterations from cold: "
+          f"{1e3 * short_s / CFG4_PROFILE_ITERS:.2f} ms each, the device "
+          f"{nums['device_ms_per_iteration']:.2f} ms, busy "
+          + (f"{100 * nums['busy_share']:.1f}%" if dev_us else
+             "not measured (the profiler saw no kernel)")
+          + f" [{card}]", flush=True)
+    # one iteration from the same carry, two iterations in: at stage 0 (the
+    # share the whole tree) and at a split stage, where every boundary
+    # exchange runs (one rank holds every column)
+    sh = bigtree.Sharded(data, meta, mesh)
+    c = sp.sp_init(meta, x0, zero_primal(meta, (1,), torch.float32),
+                   zero_dual(meta, (1,), torch.float32), opts)
+    plain = sp.sp_body(data, meta, CFG4_TOL, opts, fused_sweep=False)
+    for _ in range(2):
+        c = plain(c)
+    ref = plain(c)
+    check(sh.part.k == 0, f"one rank splits stage {sh.part.k}")
+    got = sp.sp_body(sh.data, sh.meta, CFG4_TOL, opts, fused_sweep=False,
+                     ops=sh.ops)(c)
+    nums["one_iteration_err"] = carry_err(got, ref)
+    del got
+    stage = bigtree.partition_stage(meta.tree, CFG4_STAGE_RANKS)
+    shk = bigtree.Sharded(data, meta, mesh, stage)
+    node = ("z", "v", "r_prev", "s_prev", "dirstate", "zbar_c", "vbar_c")
+    local = dataclasses.replace(c, **{f: shk.share(getattr(c, f))
+                                      for f in node})
+    del c
+    shk.comm.reset()
+    got = sp.sp_body(shk.data, shk.meta, CFG4_TOL, opts, fused_sweep=False,
+                     ops=shk.ops)(local)
+    torch.cuda.synchronize()
+    sp_comm = {kind: dict(count=n, bytes=nb)
+               for kind, (n, nb) in shk.comm.counts.items()}
+    del local
+    err, scale = 0.0, 0.0
+    for f in dataclasses.fields(ref):
+        mine = getattr(got, f.name)
+        if f.name in node:
+            mine = shk.whole(mine)
+        for x, y in zip(leaves(mine), leaves(getattr(ref, f.name))):
+            if torch.is_tensor(y) and y.is_floating_point():
+                err = max(err, abs_err(x, y))
+                fin = y[torch.isfinite(y)]
+                if fin.numel():
+                    scale = max(scale, float(fin.abs().max()))
+        del mine
+    nums["stage_hold"] = dict(stage=stage, sp_err=err, sp_scale=scale,
+                              sp_collectives=sp_comm)
+    del got, ref
+    torch.cuda.empty_cache()
+    # CFG4_CP_ITERS iterations of node-sharded CP and of the Solver's; and
+    # CFG4_STAGE_CP_ITERS of node-sharded CP split at the stage above
+    res_s, _ = bigtree.run_cp_sharded(data, meta, x0, CFG4_TOL,
+                                      CFG4_CP_ITERS, mesh)
+    res_u = Solver(data, meta, algorithm="cp", fused_sweep=False,
+                   max_iter=CFG4_CP_ITERS).solve(x0, tol=CFG4_TOL)
+    nums["cp_err"] = max(abs_err(a, b) for a, b in zip(
+        leaves((res_s.z, res_s.v)), leaves((res_u.z, res_u.v))))
+    check(torch.equal(res_s.iterations, res_u.iterations),
+          "node-sharded CP ran other iterations than the Solver's")
+    del res_s, res_u
+    cp_stats = {}
+    res_k, _ = bigtree.run_cp_sharded(data, meta, x0, CFG4_TOL,
+                                      CFG4_STAGE_CP_ITERS, mesh,
+                                      stats=cp_stats, stage=stage)
+    res_u = Solver(data, meta, algorithm="cp", fused_sweep=False,
+                   max_iter=CFG4_STAGE_CP_ITERS).solve(x0, tol=CFG4_TOL)
+    pairs = list(zip(leaves((res_k.z, res_k.v)), leaves((res_u.z, res_u.v))))
+    hold_k = nums["stage_hold"]
+    hold_k.update(
+        cp_err=max(abs_err(a, b) for a, b in pairs),
+        cp_scale=max(float(b.abs().max()) for _, b in pairs),
+        cp_iterations=int(res_k.iterations[0]),
+        cp_collectives=cp_stats["by_kind"])
+    check(torch.equal(res_k.iterations, res_u.iterations),
+          f"node-sharded CP at stage {stage} ran other iterations than the "
+          "Solver's")
+    del res_k, res_u, pairs
+    torch.cuda.empty_cache()
+    print(f"[cfg4 solve] one SuperMann iteration from the same carry against "
+          f"the unsharded composed sp_body: max |diff| "
+          f"{nums['one_iteration_err']:.3e}; {CFG4_CP_ITERS} CP iterations "
+          f"against Solver(algorithm='cp', fused_sweep=False): max |diff| "
+          f"{nums['cp_err']:.3e} (held at 0: at stage 0 the share is the "
+          f"whole tree) [{card}]", flush=True)
+    print(f"[cfg4 stage] split at stage {stage} ({meta.tree.d ** stage} "
+          f"columns, every one on this rank): one SuperMann iteration from "
+          f"the same carry, max |diff| {hold_k['sp_err']:.3e} (scale "
+          f"{hold_k['sp_scale']:.3e}), collectives {sp_comm}; "
+          f"{CFG4_STAGE_CP_ITERS} CP iterations, max |diff| "
+          f"{hold_k['cp_err']:.3e} (scale {hold_k['cp_scale']:.3e}), "
+          f"collectives per iteration {cp_stats['by_kind']}; held within "
+          f"{CFG4_STAGE_RTOL} (1 + scale) [{card}]", flush=True)
+    check(nums["one_iteration_err"] == 0.0 and nums["cp_err"] == 0.0,
+          "node-sharded iterations differ from the unsharded ones")
+    for what in ("sp", "cp"):
+        check(hold_k[f"{what}_err"]
+              <= CFG4_STAGE_RTOL * (1 + hold_k[f"{what}_scale"]),
+              f"node-sharded {what} at stage {stage} differs from the "
+              f"unsharded by {hold_k[f'{what}_err']}")
+    check(sp_comm.get("all_gather", {}).get("count", 0) > 0
+          and cp_stats["by_kind"].get("all_gather", {}).get("count", 0) > 0,
+          f"no boundary exchange ran at stage {stage}")
+    return nums
+
+
+def lane_farm(data, meta, x0, ws, card):
+    """9c: the headline farm lane-sharded on the one-rank NCCL mesh
+    (``mesh.shard_batch``, ``replicate``, ``gather_batch``) on the main
+    path (the fused step in graphed chunks), a cold window of COLD_STEPS,
+    with the launch counts set to 0 just before and read just after;
+    its gathered lanes bitwise equal to the unsharded farm's."""
+    from spock_tpu_torch import mpc
+    from spock_tpu_torch.parallel import mesh as pmesh
+
+    mesh = pmesh.make_mesh()
+    per = x0.shape[0] // mesh.size
+    lanes = slice(mesh.rank * per, (mesh.rank + 1) * per)
+    path = dict(n_steps=COLD_STEPS, max_total_iters=COLD_CAP,
+                iters_per_launch=ITERS_PER_LAUNCH)
+    reset_counts()
+    res = mpc.simulate_async(pmesh.replicate(data, mesh), meta,
+                             pmesh.shard_batch(x0, mesh), ws[:, lanes], TOL,
+                             **path)
+    counts = launch_counts()
+    got = pmesh.gather_batch(dict(
+        us=res.us.transpose(0, 1), xs=res.xs,
+        iters_per_step=res.iters_per_step.transpose(0, 1),
+        steps_done=res.steps_done), mesh)
+    ref = mpc.simulate_async(data, meta, x0, ws, TOL, **path)
+    want = dict(us=ref.us.transpose(0, 1), xs=ref.xs,
+                iters_per_step=ref.iters_per_step.transpose(0, 1),
+                steps_done=ref.steps_done)
+    for k in want:
+        check(torch.equal(got[k], want[k]),
+              f"the lane-sharded farm's {k} differ from the unsharded "
+              f"farm's by {abs_err(got[k].double(), want[k].double())}")
+    check_step_farm(counts, res.run["executed"], "lane-sharded farm")
+    counts = {k: c for k, c in counts.items() if c}
+    print(f"[lanes] the headline farm over a one-rank NCCL mesh "
+          f"(shard_batch, replicate, gather_batch), {COLD_STEPS} cold steps "
+          f"in {res.total_iterations} farm iterations on the fused step in "
+          f"graphed chunks of {ITERS_PER_LAUNCH} ({res.run['executed']} run):"
+          f" launches {counts}; its "
+          f"{x0.shape[0]} lanes equal the unsharded farm's bitwise (us, xs, "
+          f"iters_per_step, steps_done) [{card}]", flush=True)
+    return dict(launches=counts, farm_iterations=res.total_iterations,
+                farm_iterations_run=res.run["executed"])
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; nothing was run")
@@ -2176,6 +2656,8 @@ def main():
             result = smoke(card, device, pool, built)
     finally:
         _build.wait()
+        if torch.distributed.is_initialized():  # phase 9's one-rank mesh
+            torch.distributed.destroy_process_group()
     run_s = time.perf_counter() - T0
     print(f"[time] the whole run took {run_s:.1f} s, {result['build_s']:.1f} "
           f"s of them until every kernel was built [{card}]", flush=True)
@@ -2387,8 +2869,35 @@ def smoke(card, device, pool, built):
     stamp("8c done")
     cfg3["record"] = record_checks(data, meta, x0, card, opts)
     stamp("8d done")
+
+    # ---- 9. BASELINE config 4 (7,174,453 nodes): the kernels on it (9a),
+    # its cold solve through bigtree on the one-card NCCL mesh (9b), the
+    # headline farm lane-sharded on that mesh (9c) ----
+    spec4, data4, meta4, cfg4 = cfg4_build(card)
+    rows4, cfg4["step"] = cfg4_rows(spec4, data4, meta4, card, opts)
+    stamp("9a done")
+    cfg4["solve"] = cfg4_solve(data4, meta4, card, opts)
+    del data4, meta4
+    torch.cuda.empty_cache()
+    stamp("9b done")
+    cfg4["lanes"] = lane_farm(data, meta, x0, ws, card)
+    stamp("9c done")
+    # config 4's rows carry the launches of config 4's own path, its solve:
+    # the composed path, which launches none of them (9b holds that).  They
+    # are the only rows exempt from the launch check; their kernels'
+    # launches on the main path are in the rows without the tag
+    counter = dict(sp_step_fused_tau1="sp_step_fused",
+                   sp_step_backtrack="sp_step_backtrack",
+                   **{k: k for k in SWEEP_KERNELS})
+    for row in rows4:
+        row["launches"] = cfg4["solve"]["launches"].get(
+            counter[row["name"].split("[")[0]], 0)
+    print(f"[cfg4] rows at 0 launches, config 4's solve being the composed "
+          f"path: {', '.join(row['name'] for row in rows4)} [{card}]",
+          flush=True)
     check(all(k["launches"] for k in kernels),
           "a kernel row has no launches on its path")
+    kernels += rows4
 
     result = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                   build_s=build_s, kernels=kernels, step=step_extra,
@@ -2396,7 +2905,7 @@ def smoke(card, device, pool, built):
                   composed_farm=cnums, cp_solve=cp, broyden_solve=broyden,
                   controls_max_err=err, profile=prof, wide=wide,
                   element_body_solves=element, ptxas=ptxas, smem_plans=plans,
-                  metric_apply=metric_extra, risk_sweep=cfg3)
+                  metric_apply=metric_extra, risk_sweep=cfg3, bigtree=cfg4)
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)

@@ -60,7 +60,24 @@ def hist_insert(H, new):
                 H, new)
 
 
-def direction_struct(MR, MP, r, niter):
+def gram(MR, r):
+    """G_ij = <y_i, y_j> over a history's rows and c_j = <y_j, r>,
+    accumulated leafwise with one batched product per leaf (the window is
+    tiny, the leaves long).  MR: leaves [B, m, *event]; r: leaves
+    [B, *event].  Returns ([B, m, m], [B, m])."""
+    mr_leaves, r_leaves = leaves(MR), leaves(r)
+    B, m = mr_leaves[0].shape[:2]
+    dtype, device = mr_leaves[0].dtype, mr_leaves[0].device
+    Gm = torch.zeros((B, m, m), dtype=dtype, device=device)
+    cm = torch.zeros((B, m), dtype=dtype, device=device)
+    for hl, rl in zip(mr_leaves, r_leaves):
+        h = hl.reshape(B, m, -1)
+        Gm = Gm + torch.bmm(h, h.transpose(1, 2))
+        cm = cm + torch.bmm(h, rl.reshape(B, -1, 1))[..., 0]
+    return Gm, cm
+
+
+def direction_struct(MR, MP, r, niter, gram_fn=gram):
     """Anderson direction over structured newest-first histories.
 
     MR/MP: trees with leaves [B, m, *event] (row 0 = newest); r: residual
@@ -71,20 +88,13 @@ def direction_struct(MR, MP, r, niter):
     solve iff ``j <= niter``.  Older rows (left over from a previous solve
     after a farm refill) are excluded algebraically: their Gram entries and
     gamma weights are zeroed, exactly what physically zeroed rows would
-    contribute, with no reset pass over the history.
+    contribute, with no reset pass over the history.  ``gram_fn`` computes
+    the Gram (:func:`gram`, or a node-sharded one that adds the ranks'
+    parts).
     """
-    mr_leaves, r_leaves = leaves(MR), leaves(r)
-    B, m = mr_leaves[0].shape[:2]
-    dtype, device = mr_leaves[0].dtype, mr_leaves[0].device
-
-    # Gram G_ij = <y_i, y_j> and c_j = <y_j, r>, accumulated leafwise with
-    # one batched product per leaf (the window is tiny, the leaves long).
-    Gm = torch.zeros((B, m, m), dtype=dtype, device=device)
-    cm = torch.zeros((B, m), dtype=dtype, device=device)
-    for hl, rl in zip(mr_leaves, r_leaves):
-        h = hl.reshape(B, m, -1)
-        Gm = Gm + torch.bmm(h, h.transpose(1, 2))
-        cm = cm + torch.bmm(h, rl.reshape(B, -1, 1))[..., 0]
+    B, m = leaves(MR)[0].shape[:2]
+    dtype, device = leaves(MR)[0].dtype, leaves(MR)[0].device
+    Gm, cm = gram_fn(MR, r)
 
     vm = (torch.arange(m, device=device)[None, :]
           <= niter[:, None]).to(dtype)  # [B, m]

@@ -4,13 +4,19 @@ Batch convention: every iterate carries exactly one leading lane axis
 [B, ...]; per-lane scalars (norms, flags, counters) have shape [B].
 Lane-masked updates give exact per-lane termination: a converged lane's
 iterate is frozen while the others go on.
+
+The operators L, L' and prox_f run on ``meta.tree``'s layout (the whole
+tree, or one rank's share of a node-sharded tree: ``parallel.bigtree``).
+The reductions over a layout and whether kernels may run are an
+:class:`Ops`: by default (:data:`PLAIN`) those of the whole tree on one
+device, with the kernels chosen by class.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
@@ -18,6 +24,24 @@ from ..ops import cuda_kernels, sweep_kernels
 from ..ops.linop import apply_L, apply_LT, metric_apply
 from ..ops.prox import prox_f, prox_h_conj
 from ..zv import Dual, Primal, inf_norm, lincomb, sub, tmap, vdot
+from .anderson import gram
+
+
+@dataclasses.dataclass(frozen=True)
+class Ops:
+    """The reductions over one layout of the iterates: the inner product and
+    inf-norm over event dims, and the Anderson Gram (``anderson.gram``'s
+    signature).  ``kernels``: whether a kernel may take a phase where its
+    class covers the problem; False keeps the composed path with the plain
+    prox_h*."""
+
+    vdot: Callable = vdot
+    inf_norm: Callable = inf_norm
+    gram: Callable = gram
+    kernels: bool = True
+
+
+PLAIN = Ops()
 
 
 def bexpand(a, ref):
@@ -51,7 +75,7 @@ def cp_sweep_ref(data, meta, z: Primal, v: Dual, gamma, sigma, x0):
 
 
 def cp_sweep(data, meta, z: Primal, v: Dual, gamma, sigma, x0,
-             fused: bool = True):
+             fused: bool = True, ops: Ops = PLAIN):
     """One Chambolle-Pock sweep: returns (zbar, vbar).
 
     zbar = prox_f(z - gamma L' v); vbar = prox_h*(v + sigma L (2 zbar - z)).
@@ -59,10 +83,11 @@ def cp_sweep(data, meta, z: Primal, v: Dual, gamma, sigma, x0,
     kernel launch.  Otherwise it is the composed path: PyTorch operators,
     with the prox_h* phase in its own kernel where that kernel covers the
     problem.  (A wrapper itself takes its plain version for CPU tensors.)
+    ``ops`` without kernels: the composed path with the plain prox_h*.
     """
-    if fused and sweep_kernels.supported(meta, data):
+    if ops.kernels and fused and sweep_kernels.supported(meta, data):
         return sweep_kernels.cp_sweep_fused(data, meta, z, v, gamma, sigma, x0)
-    if cuda_kernels.supported(meta):
+    if ops.kernels and cuda_kernels.supported(meta):
         def prox_h(v1):
             return cuda_kernels.prox_h_conj_fused(data, meta, v1, sigma)
     else:
@@ -71,27 +96,30 @@ def cp_sweep(data, meta, z: Primal, v: Dual, gamma, sigma, x0,
     return _cp_sweep_composed(data, meta, z, v, gamma, sigma, x0, prox_h)
 
 
-def _sweep_metric_tail(data, meta, z, v, zbar, vbar, gamma, sigma):
+def _sweep_metric_tail(data, meta, z, v, zbar, vbar, gamma, sigma,
+                       ops=PLAIN):
     rz, rv = sub(z, zbar), sub(v, vbar)
     Mrz, Mrv = metric_apply(data, meta, rz, rv, gamma, sigma)
-    rnorm_sq = vdot(rz, Mrz, 1) + vdot(rv, Mrv, 1)
+    rnorm_sq = ops.vdot(rz, Mrz, 1) + ops.vdot(rv, Mrv, 1)
     return (zbar, vbar, Mrz, Mrv, rnorm_sq,
-            inf_norm(Mrz, batch_ndim=1), inf_norm(Mrv, batch_ndim=1))
+            ops.inf_norm(Mrz, batch_ndim=1), ops.inf_norm(Mrv, batch_ndim=1))
 
 
 def cp_sweep_metric(data, meta, z: Primal, v: Dual, gamma, sigma, x0,
-                    fused: bool = True):
+                    fused: bool = True, ops: Ops = PLAIN):
     """One CP sweep plus the metric image of its fixed-point residual and the
     per-lane reductions SuperMann consumes: returns ``(zbar, vbar, Mrz, Mrv,
     rnorm_sq, nMrz, nMrv)`` with ``(Mrz, Mrv) = M (z - zbar, v - vbar)``,
     ``rnorm_sq = <r, M r>`` and nMrz/nMrv the inf-norms of M r's halves.
     One kernel launch with ``fused`` where the sweep kernel covers the
     problem."""
-    if fused and sweep_kernels.supported(meta, data):
+    if ops.kernels and fused and sweep_kernels.supported(meta, data):
         return sweep_kernels.cp_sweep_metric_fused(data, meta, z, v, gamma,
                                                    sigma, x0)
-    zbar, vbar = cp_sweep(data, meta, z, v, gamma, sigma, x0, fused=False)
-    return _sweep_metric_tail(data, meta, z, v, zbar, vbar, gamma, sigma)
+    zbar, vbar = cp_sweep(data, meta, z, v, gamma, sigma, x0, fused=False,
+                          ops=ops)
+    return _sweep_metric_tail(data, meta, z, v, zbar, vbar, gamma, sigma,
+                              ops)
 
 
 def cp_sweep_metric_ref(data, meta, z: Primal, v: Dual, gamma, sigma, x0):
@@ -101,27 +129,28 @@ def cp_sweep_metric_ref(data, meta, z: Primal, v: Dual, gamma, sigma, x0):
 
 
 def _candidate_sweep_tail(data, meta, z, v, dz, dv, tau, gamma, sigma, x0, Md,
-                          sweep):
+                          sweep, ops=PLAIN):
     tau = torch.as_tensor(tau, dtype=z.s.dtype, device=z.s.device)
     w = tmap(lambda a, b: a + bexpand(tau, a) * b, z, dz)
     u = tmap(lambda a, b: a + bexpand(tau, a) * b, v, dv)
     wbar, ubar = sweep(data, meta, w, u, gamma, sigma, x0)
     rw, ru = sub(w, wbar), sub(u, ubar)
     Mrz, Mrv = metric_apply(data, meta, rw, ru, gamma, sigma)
-    rnorm_sq = vdot(rw, Mrz, 1) + vdot(ru, Mrv, 1)
+    rnorm_sq = ops.vdot(rw, Mrz, 1) + ops.vdot(ru, Mrv, 1)
     Mdz, Mdv = Md if Md is not None else metric_apply(
         data, meta, dz, dv, gamma, sigma)
-    rho_dot = vdot(rw, Mdz, 1) + vdot(ru, Mdv, 1)
+    rho_dot = ops.vdot(rw, Mdz, 1) + ops.vdot(ru, Mdv, 1)
     return (
         wbar, ubar, Mrz, Mrv, rnorm_sq,
-        inf_norm(Mrz, batch_ndim=1), inf_norm(Mrv, batch_ndim=1),
+        ops.inf_norm(Mrz, batch_ndim=1), ops.inf_norm(Mrv, batch_ndim=1),
         rho_dot,
-        inf_norm(Mdz, batch_ndim=1), inf_norm(Mdv, batch_ndim=1),
+        ops.inf_norm(Mdz, batch_ndim=1), ops.inf_norm(Mdv, batch_ndim=1),
     )
 
 
 def candidate_sweep(data, meta, z: Primal, v: Dual, dz: Primal, dv: Dual, tau,
-                    gamma, sigma, x0, Md=None, fused: bool = True):
+                    gamma, sigma, x0, Md=None, fused: bool = True,
+                    ops: Ops = PLAIN):
     """SuperMann candidate evaluation at (w, u) = (z, v) + tau (dz, dv).
 
     Returns ``(wbar, ubar, Mrz, Mrv, rnorm_sq, nMrz, nMrv, rho_dot, nMdz,
@@ -131,13 +160,13 @@ def candidate_sweep(data, meta, z: Primal, v: Dual, dz: Primal, dv: Dual, tau,
     d is never stored there).  On the composed path ``Md`` may carry a
     precomputed ``(Mdz, Mdv)``: d does not change between backtracking
     trials, so the caller computes it once."""
-    if fused and sweep_kernels.supported(meta, data):
+    if ops.kernels and fused and sweep_kernels.supported(meta, data):
         return sweep_kernels.candidate_sweep_fused(data, meta, z, v, dz, dv,
                                                    tau, gamma, sigma, x0)
 
-    return _candidate_sweep_tail(data, meta, z, v, dz, dv, tau, gamma, sigma,
-                                 x0, Md, functools.partial(cp_sweep,
-                                                           fused=False))
+    return _candidate_sweep_tail(
+        data, meta, z, v, dz, dv, tau, gamma, sigma, x0, Md,
+        functools.partial(cp_sweep, fused=False, ops=ops), ops)
 
 
 def candidate_sweep_ref(data, meta, z, v, dz, dv, tau, gamma, sigma, x0,
@@ -148,22 +177,24 @@ def candidate_sweep_ref(data, meta, z, v, dz, dv, tau, gamma, sigma, x0,
 
 
 def metric_pair(data, meta, z: Primal, v: Dual, gamma, sigma,
-                fused: bool = True):
+                fused: bool = True, ops: Ops = PLAIN):
     """M (z, v): one kernel launch with ``fused`` where the sweep kernels
     cover the problem, the plain operators otherwise."""
-    if fused and sweep_kernels.supported(meta, data):
+    if ops.kernels and fused and sweep_kernels.supported(meta, data):
         return sweep_kernels.metric_apply_fused(data, meta, z, v, gamma, sigma)
     return metric_apply(data, meta, z, v, gamma, sigma)
 
 
-def residual_norms(data, meta, dz: Primal, dv: Dual, gamma, sigma):
+def residual_norms(data, meta, dz: Primal, dv: Dual, gamma, sigma,
+                   ops: Ops = PLAIN):
     """Per-lane termination residuals
 
       xi1 = || L' dv - dz / gamma ||_inf,  xi2 = || L dz - dv / sigma ||_inf.
     """
     xi1 = tmap(lambda a, b: a - b / gamma, apply_LT(data, meta, dv), dz)
     xi2 = tmap(lambda a, b: a - b / sigma, apply_L(data, meta, dz), dv)
-    return inf_norm(xi1, batch_ndim=1), inf_norm(xi2, batch_ndim=1)
+    return (ops.inf_norm(xi1, batch_ndim=1),
+            ops.inf_norm(xi2, batch_ndim=1))
 
 
 def check_termination(xi1, xi2, res0, tol):

@@ -12,6 +12,8 @@ import torch
 from ..problem import ProblemData, ProblemMeta, step_size
 from ..zv import Dual, Primal, lincomb, sub
 from .common import (
+    PLAIN,
+    Ops,
     SolveResult,
     bwhere,
     check_termination,
@@ -23,13 +25,17 @@ from .common import (
 def run_cp(data: ProblemData, meta: ProblemMeta, x0, z0: Primal, v0: Dual,
            tol, max_iter: int, gamma=None, sigma=None,
            lam: float = 1.0, fused_sweep: bool = True,
-           record: bool = False) -> SolveResult:
+           record: bool = False, constrain=None,
+           ops: Ops = PLAIN) -> SolveResult:
     """Solve to tolerance from a warm start (z0, v0); everything batched
     [B, ...], x0: [B, nx].  ``fused_sweep``: one kernel launch per sweep
     where the sweep kernel covers the problem (default), the composed path
     when False.  ``record``: keep every iteration's (xi1, xi2), every lane's
     whether active or not, in ``result.residuals`` [max_iter, B, 2] (rows
-    after the last iteration stay zero)."""
+    after the last iteration stay zero).  ``constrain``: an optional
+    ``tree -> tree`` hook applied to (z, v) every iteration.  ``ops``: the
+    operators (``common.Ops``; ``parallel.bigtree`` gives node-sharded
+    ones)."""
     if gamma is None or sigma is None:
         gamma = sigma = step_size(data)
     tol = float(tol)
@@ -46,15 +52,17 @@ def run_cp(data: ProblemData, meta: ProblemMeta, x0, z0: Primal, v0: Dual,
             if record else None)
     it = 0
     while it < max_iter and not bool(done.all()):
+        if constrain is not None:
+            z, v = constrain(z), constrain(v)
         zbar, vbar = cp_sweep(data, meta, z, v, gamma, sigma, x0,
-                              fused=fused_sweep)
+                              fused=fused_sweep, ops=ops)
         if lam == 1.0:
             z_new, v_new = zbar, vbar
         else:
             z_new = lincomb(lam, zbar, 1.0 - lam, z)
             v_new = lincomb(lam, vbar, 1.0 - lam, v)
         x1, x2 = residual_norms(data, meta, sub(z_new, z), sub(v_new, v),
-                                gamma, sigma)
+                                gamma, sigma, ops)
         conv, res0_new = check_termination(x1, x2, res0, tol)
         active = ~done
         if record:

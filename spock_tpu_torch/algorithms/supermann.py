@@ -49,6 +49,8 @@ from ..problem import ProblemData, ProblemMeta, step_size
 from ..zv import Dual, Primal, leaves, lincomb, sub, tmap
 from . import anderson, broyden
 from .common import (
+    PLAIN,
+    Ops,
     SolveResult,
     bexpand,
     bwhere,
@@ -137,7 +139,7 @@ def _unravel_pair(flat, like_z: Primal, like_v: Dual):
 
 
 def _make_candidate(data, meta, x0, z, v, dz, dv, rnorm, q_pow, opts, gamma,
-                    sigma, fused_sweep):
+                    sigma, fused_sweep, ops=PLAIN):
     """The one-backtracking-trial closure at per-lane step size tau.
 
     Returns the updated acceptance state plus the candidate's sweep results
@@ -145,13 +147,15 @@ def _make_candidate(data, meta, x0, z, v, dz, dv, rnorm, q_pow, opts, gamma,
     # d does not change between trials: the composed path computes M d once;
     # the candidate kernel computes it in every launch without storing it
     Md = None
-    if not (fused_sweep and sweep_kernels.supported(meta, data)):
-        Md = metric_pair(data, meta, dz, dv, gamma, sigma, fused=False)
+    if not (ops.kernels and fused_sweep
+            and sweep_kernels.supported(meta, data)):
+        Md = metric_pair(data, meta, dz, dv, gamma, sigma, fused=False,
+                         ops=ops)
 
     def candidate(tau, looping, b_z_acc, b_v_acc, b_r_safe, b_xi1, b_xi2):
         (wbar, ubar, _Mrw, _Mru, rt_sq, nMrwz, nMrwv, rho_dot, nMdz,
          nMdv) = candidate_sweep(data, meta, z, v, dz, dv, tau, gamma, sigma,
-                                 x0, Md=Md, fused=fused_sweep)
+                                 x0, Md=Md, fused=fused_sweep, ops=ops)
         w = tmap(lambda zl, dl: zl + bexpand(tau, zl) * dl, z, dz)
         u = tmap(lambda vl, dl: vl + bexpand(tau, vl) * dl, v, dv)
         rw = sub(w, wbar)
@@ -275,18 +279,27 @@ def sp_init(meta: ProblemMeta, x0, z0: Primal, v0: Dual,
 
 def sp_body(data: ProblemData, meta: ProblemMeta, tol,
             opts: SuperMannOpts = SuperMannOpts(), gamma=None, sigma=None,
-            fused_sweep: bool = True, record: bool = False):
+            fused_sweep: bool = True, record: bool = False, constrain=None,
+            ops: Ops = PLAIN):
     """Returns the one-iteration transition function carry -> carry, for
     outer drivers (the async MPC farm) to embed in their own loops.  With
     ``record`` the carry's trace (from ``sp_init(record=True)``) gets the
-    iteration's row."""
+    iteration's row.  ``constrain``: an optional ``tree -> tree`` hook
+    applied to the carry's (z, v) at the start of every iteration.
+    ``ops``: the operators (``common.Ops``; ``parallel.bigtree`` gives
+    node-sharded ones, which Broyden's flat state cannot take)."""
     if opts.direction not in ("anderson", "broyden", "residual"):
         raise ValueError(f"unknown direction {opts.direction!r}")
+    if ops is not PLAIN and opts.direction == "broyden":
+        raise ValueError("Broyden keeps a flat [B, K] state over the whole "
+                         "pair: it takes the plain operators only")
     if gamma is None or sigma is None:
         gamma = sigma = step_size(data)
     tol = float(tol)
 
     def body(c: SPCarry) -> SPCarry:
+        if constrain is not None:
+            c = dataclasses.replace(c, z=constrain(c.z), v=constrain(c.v))
         B = c.done.shape[0]
         dtype, device = c.r_safe.dtype, c.r_safe.device
         x0 = c.x0
@@ -298,7 +311,8 @@ def sp_body(data: ProblemData, meta: ProblemMeta, tol,
             rnorm, nMrz, nMrv = c.rnorm_c, c.nMrz_c, c.nMrv_c
         else:
             zbar, vbar, _Mrz, _Mrv, rnsq, nMrz, nMrv = cp_sweep_metric(
-                data, meta, c.z, c.v, gamma, sigma, x0, fused=fused_sweep)
+                data, meta, c.z, c.v, gamma, sigma, x0, fused=fused_sweep,
+                ops=ops)
             rnorm = torch.sqrt(torch.clamp(rnsq, min=0.0))
         rz = sub(c.z, zbar)
         rv = sub(c.v, vbar)
@@ -315,7 +329,8 @@ def sp_body(data: ProblemData, meta: ProblemMeta, tol,
                        tmap(torch.negative, y))
             MR = anderson.hist_insert(c.dirstate[0], y)
             MP = anderson.hist_insert(c.dirstate[1], p)
-            dz, dv = anderson.direction_struct(MR, MP, r_pair, c.niter)
+            dz, dv = anderson.direction_struct(MR, MP, r_pair, c.niter,
+                                               ops.gram)
             dirstate = (MR, MP)
         elif opts.direction == "broyden":
             hp = has_prev[:, None]
@@ -365,7 +380,8 @@ def sp_body(data: ProblemData, meta: ProblemMeta, tol,
                           c.niter.to(dtype))
 
         candidate = _make_candidate(data, meta, x0, c.z, c.v, dz, dv, rnorm,
-                                    q_pow, opts, gamma, sigma, fused_sweep)
+                                    q_pow, opts, gamma, sigma, fused_sweep,
+                                    ops)
 
         # ---- first trial at tau = 1 (the common accept path) ----
         looping0 = loop_init & (~c.done)
@@ -457,10 +473,13 @@ def root_u_carry(sp):
 
 
 def use_fused_step(data: ProblemData, meta: ProblemMeta, opts: SuperMannOpts,
-                   fused_sweep: bool = True, fused_step: bool = True) -> bool:
+                   fused_sweep: bool = True, fused_step: bool = True,
+                   constrain=None) -> bool:
     """The fused step covers the production configuration: Anderson window 3,
-    no K0, the fused sweep, and a problem class the kernels cover."""
-    return (fused_step and fused_sweep and opts.direction == "anderson"
+    no K0, the fused sweep, no ``constrain`` hook, and a problem class the
+    kernels cover."""
+    return (fused_step and fused_sweep and constrain is None
+            and opts.direction == "anderson"
             and not opts.k0 and opts.aa_window == 3
             and spstep.supported(meta, data))
 
@@ -590,10 +609,12 @@ def run_supermann(data: ProblemData, meta: ProblemMeta, x0, z0: Primal,
                   opts: SuperMannOpts = SuperMannOpts(), gamma=None,
                   sigma=None, fused_sweep: bool = True,
                   fused_step: bool = True,
-                  record: bool = False) -> SolveResult:
+                  record: bool = False, constrain=None) -> SolveResult:
     """Solve to tolerance from a warm start (z0, v0); batched [B, ...].
-    ``record``: the per-iteration trace in ``result.residuals``."""
-    if use_fused_step(data, meta, opts, fused_sweep, fused_step):
+    ``record``: the per-iteration trace in ``result.residuals``.
+    ``constrain``: a ``tree -> tree`` hook on (z, v) every iteration (then
+    never the fused step)."""
+    if use_fused_step(data, meta, opts, fused_sweep, fused_step, constrain):
         c = sp_init_fused(meta, x0, z0, v0, opts, max_iter, record)
         bodies = [sp_body_fused(data, meta, tol, opts, phase=ph, gamma=gamma,
                                 sigma=sigma, record=record)
@@ -601,7 +622,8 @@ def run_supermann(data: ProblemData, meta: ProblemMeta, x0, z0: Primal,
     else:
         c = sp_init(meta, x0, z0, v0, opts, max_iter, record)
         bodies = [sp_body(data, meta, tol, opts, gamma=gamma, sigma=sigma,
-                          fused_sweep=fused_sweep, record=record)]
+                          fused_sweep=fused_sweep, record=record,
+                          constrain=constrain)]
     while c.it < max_iter and not bool(c.done.all()):
         c = bodies[c.it % len(bodies)](c)
     return SolveResult(

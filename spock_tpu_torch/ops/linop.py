@@ -42,24 +42,29 @@ def nmul_t(M, x):
 
 def rep_children(a, tree):
     """[..., n_nonleaf] -> [..., n - 1]: each parent's value replicated to its
-    children, in the sibling-major non-root order."""
+    children, in the sibling-major non-root order.  ``tree``: the layout
+    (:mod:`spock_tpu_torch.tree`)."""
     parts = []
     for t in range(tree.N - 1):
-        parts.extend([a[..., tree.stage_slice(t)]] * tree.d)
+        parts.extend(tree.scatter(t + 1, [a[..., tree.stage_slice(t)]]
+                                  * tree.d))
     return torch.cat(parts, dim=-1)
 
 
-def sum_children(a, tree):
-    """[..., n - 1] (non-root order) -> [..., n_nonleaf]: sum each parent's d
-    children (a contiguous [d, m] reshape per stage)."""
+def sum_children(arrs, tree):
+    """[..., n - 1] (non-root order) -> [..., n_nonleaf] for each of the
+    arrays ``arrs``: sum each parent's d children (a contiguous [d, m]
+    reshape per stage, the arrays' stages gathered together)."""
     d = tree.d
-    parts = []
+    outs = [[] for _ in arrs]
     for t in range(1, tree.N):
         m = tree.stage_size(t - 1)
         lo = tree.stage_offset(t) - 1
-        blk = a[..., lo: lo + d * m]
-        parts.append(blk.reshape(blk.shape[:-1] + (d, m)).sum(dim=-2))
-    return torch.cat(parts, dim=-1)
+        blks = tree.gather(t, [a[..., lo: lo + tree.stage_size(t)]
+                               for a in arrs])
+        for out, blk in zip(outs, blks):
+            out.append(blk.reshape(blk.shape[:-1] + (d, m)).sum(dim=-2))
+    return [torch.cat(out, dim=-1) for out in outs]
 
 
 def bdot(b, y):
@@ -111,9 +116,11 @@ def apply_LT(data: ProblemData, meta: ProblemMeta, v: Dual) -> Primal:
     """z = L' v."""
     t = meta.tree
 
-    x_nl = v.cx + sum_children(nmul_t(data.sqrtQ, v.qx), t)
+    cq, cr = sum_children([nmul_t(data.sqrtQ, v.qx),
+                           nmul_t(data.sqrtR, v.ru)], t)
+    x_nl = v.cx + cq
     x_leaf = v.cxN + nmul_t(data.sqrtQN, v.qNx)
-    u = v.cu + sum_children(nmul_t(data.sqrtR, v.ru), t)
+    u = v.cu + cr
 
     if v.pnl is not None:
         x_nl = x_nl + torch.einsum("cx,...cn->...xn", data.Gx, v.pnl)

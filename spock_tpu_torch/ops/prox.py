@@ -28,20 +28,25 @@ def project_risk_kernel(data: ProblemData, meta: ProblemMeta, s_rest, tau, y):
 
     s_rest: [..., n-1] (s over non-root nodes), tau: [..., n-1],
     y: [..., ny, n_nonleaf].  Each stage's non-root block reshapes
-    contiguously to [d, m], the sibling index becoming a feature dim.
+    contiguously to [d, m], the sibling index becoming a feature dim (on a
+    layout that splits the stage, gathered whole first and scattered back
+    after: see :mod:`spock_tpu_torch.tree`).
     """
     t = meta.tree
     d = t.d
 
-    def to_children_fm(a):
-        # [..., n-1] -> [..., d, n_nonleaf]
-        parts = []
+    def to_children_fm(a, b):
+        # [..., n-1] -> [..., d, n_nonleaf], for a and b (each stage of
+        # both gathered together)
+        parts = ([], [])
         for st in range(1, t.N):
             m = t.stage_size(st - 1)
             lo = t.stage_offset(st) - 1
-            blk = a[..., lo: lo + d * m]
-            parts.append(blk.reshape(blk.shape[:-1] + (d, m)))
-        return torch.cat(parts, dim=-1)
+            blks = t.gather(st, [a[..., None, lo: lo + t.stage_size(st)],
+                                 b[..., None, lo: lo + t.stage_size(st)]])
+            for out, blk in zip(parts, blks):
+                out.append(blk[..., 0, :].reshape(blk.shape[:-2] + (d, m)))
+        return [torch.cat(out, dim=-1) for out in parts]
 
     def from_children_fm(block):
         # inverse of to_children_fm: [..., d, n_nonleaf] -> [..., n-1]
@@ -50,11 +55,12 @@ def project_risk_kernel(data: ProblemData, meta: ProblemMeta, s_rest, tau, y):
         for st in range(1, t.N):
             m = t.stage_size(st - 1)
             blk = block[..., :, off: off + m]
-            parts.append(blk.reshape(blk.shape[:-2] + (d * m,)))
+            parts.extend(t.scatter(st, [blk.reshape(blk.shape[:-2]
+                                                    + (d * m,))]))
             off += m
         return torch.cat(parts, dim=-1)
 
-    vec = torch.cat([y, to_children_fm(s_rest), to_children_fm(tau)], dim=-2)
+    vec = torch.cat([y, *to_children_fm(s_rest, tau)], dim=-2)
     out = nmul(data.ker_proj, vec)
     y_p = out[..., : meta.ny, :]
     s_p = from_children_fm(out[..., meta.ny: meta.ny + d, :])

@@ -5,7 +5,10 @@ The exact Euclidean projection of a stacked (x, u) onto the affine subspace
 op over all d^t nodes of the stage, and the N-stage backward/forward
 recursions are unrolled in Python.  The k-th children of the stage-t nodes
 are the contiguous block ``[k*m, (k+1)*m)`` of stage t+1 (sibling-major).
-The offline factors are stage-uniform (node dim 1).
+The offline factors are stage-uniform (node dim 1).  The tree is
+``meta.tree``'s layout (:mod:`spock_tpu_torch.tree`): the costates cross
+into a stage's parents through its ``gather``, the rollout into a stage
+through its ``scatter``.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ def project_dynamics(data: ProblemData, meta: ProblemMeta, x, u, x0):
         Kt = ric.K[st][0]  # [nu, nx]
         ABKt = ric.ABK[st][0]  # [d, nx, nx]
         PBt = ric.PB[st][0]  # [d, nx, nu]
+        (q_next,) = t.gather(st + 1, [q_next])
         m = t.stage_size(st)
         qks = [q_next[..., k * m:(k + 1) * m] for k in range(d)]
         sum_d = None
@@ -62,11 +66,9 @@ def project_dynamics(data: ProblemData, meta: ProblemMeta, x, u, x0):
         ABKt = ric.ABK[st][0]
         u_st = torch.matmul(Kt, x_st) + dvecs[st]
         us.append(u_st)
-        x_st = torch.cat(
-            [torch.matmul(ABKt[k], x_st) + torch.matmul(B[k], dvecs[st])
-             for k in range(d)],
-            dim=-1,
-        )
+        x_st = torch.cat(t.scatter(st + 1, [
+            torch.matmul(ABKt[k], x_st) + torch.matmul(B[k], dvecs[st])
+            for k in range(d)]), dim=-1)
         xs.append(x_st)
 
     return torch.cat(xs, dim=-1), torch.cat(us, dim=-1)

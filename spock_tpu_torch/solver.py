@@ -79,7 +79,9 @@ class Solver:
     kernel launch per CP sweep where the sweep kernels cover the problem
     (default); False takes the composed path (PyTorch operators and the
     prox_h* kernel).  fused_step: one kernel launch per SuperMann iteration
-    where ``supermann.use_fused_step`` holds (default)."""
+    where ``supermann.use_fused_step`` holds (default).  constrain: an
+    optional ``tree -> tree`` hook applied to the iterates (z, v) every
+    iteration (the JAX package's sharding hook; never the fused step)."""
 
     data: ProblemData
     meta: ProblemMeta
@@ -90,6 +92,7 @@ class Solver:
     device: Optional[str] = None
     fused_sweep: bool = True
     fused_step: bool = True
+    constrain: object = None
 
     def __post_init__(self):
         if self.algorithm not in ("spock", "cp"):
@@ -120,13 +123,15 @@ class Solver:
         if self.algorithm == "cp":
             res = cp_alg.run_cp(self.data, self.meta, x0, z0, v0, tol=tol,
                                 max_iter=int(self.max_iter), lam=self.lam,
-                                fused_sweep=self.fused_sweep)
+                                fused_sweep=self.fused_sweep,
+                                constrain=self.constrain)
         else:
             res = sp_alg.run_supermann(self.data, self.meta, x0, z0, v0,
                                        tol=tol, max_iter=int(self.max_iter),
                                        opts=self.supermann,
                                        fused_sweep=self.fused_sweep,
-                                       fused_step=self.fused_step)
+                                       fused_step=self.fused_step,
+                                       constrain=self.constrain)
         if unbatched:
             res = tmap(lambda a: a[0], res)
         return res

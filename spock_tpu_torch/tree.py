@@ -18,6 +18,14 @@ of the node axis.  The reference's own numbering interleaves the children
 instead (child k of parent i at stage-local ``i*d + k``):
 :meth:`UniformTree.perm_to_reference` maps one onto the other for flat-layout
 interop (``utils.refvec``).  All fields are plain Python ints.
+
+The per-stage operators (``ops.linop``, ``ops.riccati``, ``ops.prox``) read
+sizes and offsets from a *layout*: this class, or one rank's share of a
+node-sharded tree (``parallel.bigtree.Part``), which holds the same
+methods and splits one stage over the ranks.  Where a pass crosses from a
+stage to its parents they call :meth:`UniformTree.gather`; from a stage's
+parents to it, :meth:`UniformTree.scatter`.  A whole tree holds every
+stage, so both are identities.
 """
 
 from __future__ import annotations
@@ -74,6 +82,17 @@ class UniformTree:
 
     def stage_slice(self, t: int) -> slice:
         return slice(self.stage_offset(t), self.stage_offset(t + 1))
+
+    def gather(self, t: int, arrs):
+        """Arrays whose last axis is this layout's part of stage ``t`` ->
+        each with the whole stage (a list).  The whole tree: as given."""
+        return arrs
+
+    def scatter(self, t: int, blocks):
+        """Blocks that make up the whole stage ``t`` along the last axis ->
+        blocks that make up this layout's part (a list).  The whole tree:
+        as given."""
+        return blocks
 
     def stage_of(self, j: int) -> int:
         """Stage index of node ``j``."""

@@ -212,6 +212,47 @@ def test_entry_points_default_to_the_card(no_cuda, cpu_problem, entry):
                                np.zeros((1, 1), int), 1e-3, n_steps=1)
 
 
+def test_mesh_defaults_to_the_card(no_cuda):
+    """Without a card and without device="cpu", a mesh and a job raise
+    (NCCL is never swapped for gloo); the raise comes before any store is
+    contacted."""
+    from spock_tpu_torch.parallel import mesh as pmesh
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pmesh.make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pmesh.init_distributed("127.0.0.1:1", num_processes=2, process_id=0)
+
+
+def test_parallel_modules_load_no_jax():
+    """The distribution layer loads and runs without JAX or the JAX package:
+    a one-rank gloo mesh, a node-sharded CP solve at a forced stage and a
+    lane gather."""
+    code = (
+        "import sys, numpy as np, torch\n"
+        "import spock_tpu_torch.parallel\n"
+        "from spock_tpu_torch import build\n"
+        "from spock_tpu_torch.models import car\n"
+        "from spock_tpu_torch.parallel import bigtree, mesh\n"
+        "data, meta = build(car.make_spec(N=3, d=2), dtype=torch.float64,"
+        " device='cpu')\n"
+        "m = mesh.make_mesh(device='cpu')\n"
+        "res, _ = bigtree.run_cp_sharded(data, meta, np.array([[.1, .1]]),"
+        " 1e-4, 50, m, stage=1)\n"
+        "assert res.z.x.shape[-1] == meta.tree.n\n"
+        "mesh.gather_batch(res.status, m)\n"
+        "bad = sorted(x for x in sys.modules if x == 'jax' or"
+        " x.startswith('jax.') or x == 'spock_tpu' or"
+        " x.startswith('spock_tpu.'))\n"
+        "print('LOADED', bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 def test_entry_point_rejects_data_on_another_device(cpu_problem):
     data, meta = cpu_problem
     with pytest.raises(ValueError, match="lives on"):
