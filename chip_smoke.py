@@ -130,7 +130,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
       iterations bitwise against the unsharded ``sp_body`` and ``Solver``;
    c. the headline farm lane-sharded on that mesh (``shard_batch``,
       ``replicate``, ``gather_batch``) on the main path (graphed fused
-      step), 2 cold steps, bitwise equal to the unsharded farm.
+      step), 2 cold steps, bitwise equal to the unsharded farm;
+10. the main path above B = 128: the headline farm's cold window (2 steps)
+   at BIG_B = 1,024 lanes on the fused step in graphed chunks, with the
+   counts set to 0 just before and read just after; its first 128 lanes
+   take the headline's x0 and ws, the others draws from default_rng(11),
+   and those 128 lanes must equal 4a's 128-lane cold window bitwise (us,
+   xs, z, v, iterations, steps); its ms per farm iteration, solves/s, peak
+   device memory and bytes a lane against the carry's; then the step
+   kernels at 1,024 lanes on a carry one iteration into a solve from its
+   final state (``[B1024]`` rows: each launch equal bitwise to its
+   launches on the eight blocks of 128 lanes, the float32 decisions
+   against the plain version's lane by lane, timed against their bounds);
+   b. the sweep kernels #2-#4 on the element body at the horizon race's
+   shape (``examples/torch_scaling.py``: server_heat N=11, nx = nu = 50, one
+   lane) against their plain versions, timed, with their launches from a
+   cold one-lane SPOCK and CP Solver on that problem.
 
 Each phase prints the seconds since the script started (``[time]``).
 
@@ -161,7 +176,6 @@ import json
 import math
 import multiprocessing
 import os
-import subprocess
 import sys
 import threading
 import time
@@ -298,6 +312,15 @@ CFG4_CP_ITERS = 20
 # (1 + the largest |value| it compares): f32 roundoff, some 80 units in the
 # last place
 CFG4_STAGE_RANKS, CFG4_STAGE_CP_ITERS, CFG4_STAGE_RTOL = 4, 5, 1e-5
+# phase 10, the main path above B = 128: the headline farm's cold window at
+# BIG_B lanes, its first B lanes the headline's and the others drawn from
+# default_rng(BIG_SEED); a lane is one block of each step launch and a done
+# lane is frozen, so those B lanes must equal the B-lane farm's bitwise
+BIG_B, BIG_SEED = 1024, 11
+BIG_PLAIN_REPS = 5  # timed calls of the step kernels' plain versions there
+# the horizon race of examples/torch_scaling.py: server_heat nx = nu = 50,
+# above the node body's 32, one lane; its largest horizon on the card
+RACE_N, RACE_NX = 11, 50
 
 
 T0 = time.perf_counter()
@@ -313,12 +336,10 @@ def stamp(phase):
 
 
 def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()
-    return out[0].strip()
+    """``name, power limit`` of the card, as nvidia-smi gives them."""
+    from spock_tpu_torch.utils import runinfo
+
+    return runinfo.card()
 
 
 def time_ms(fn, reps=TIMING_REPS, warmup=5, spin=SPIN_CYCLES):
@@ -535,11 +556,11 @@ COST_PASSES = {"cp_sweep_fused": 2, "cp_sweep_metric_fused": 4,
                "candidate_sweep_fused": 6}
 
 
-def sweep_kernel_checks(data, meta, card, tag=None, names=None):
+def sweep_kernel_checks(data, meta, card, tag=None, names=None, batch=B):
     """Phase 3 (7a with ``tag``): the three whole-sweep kernels (or those in
-    ``names``) against their plain versions; the rows are named
-    ``name[tag]``.  With per-node costs, prints the cost-matrix bytes a
-    launch reads from the L2 and their rate."""
+    ``names``) against their plain versions at ``batch`` lanes; the rows
+    are named ``name[tag]``.  With per-node costs, prints the cost-matrix
+    bytes a launch reads from the L2 and their rate."""
     from spock_tpu_torch.algorithms import common
     from spock_tpu_torch.ops import linop, sweep_kernels
     from spock_tpu_torch.problem import step_size
@@ -548,16 +569,17 @@ def sweep_kernel_checks(data, meta, card, tag=None, names=None):
     rng = np.random.default_rng(1)
 
     def pair():
-        return sweep_kernels.new_pair(meta, B, lambda s: torch.tensor(
+        return sweep_kernels.new_pair(meta, batch, lambda s: torch.tensor(
             rng.standard_normal(s), dtype=data.dtype, device=data.device))
 
     (z, v), (dz, dv) = pair(), pair()
-    x0 = torch.tensor(rng.uniform(-0.6, 0.6, (B, meta.nx)), dtype=data.dtype,
-                      device=data.device)
-    tau = torch.tensor(rng.random(B), dtype=data.dtype, device=data.device)
+    x0 = torch.tensor(rng.uniform(-0.6, 0.6, (batch, meta.nx)),
+                      dtype=data.dtype, device=data.device)
+    tau = torch.tensor(rng.random(batch), dtype=data.dtype,
+                       device=data.device)
     g = s = step_size(data)
-    w = tmap(lambda a, b: a + tau.reshape((B,) + (1,) * (a.ndim - 1)) * b,
-             (z, v), (dz, dv))
+    w = tmap(lambda a, b: a + tau.reshape((batch,) + (1,) * (a.ndim - 1))
+             * b, (z, v), (dz, dv))
     calls = {
         "cp_sweep_fused": (
             lambda: sweep_kernels.cp_sweep_fused(data, meta, z, v, g, s, x0),
@@ -603,14 +625,14 @@ def sweep_kernel_checks(data, meta, card, tag=None, names=None):
                     for a, b in zip(leaves(r), leaves(md))).max())
         max_err = hold(row_name(name, tag), got, ref, scales)
         nbytes = nbytes_of(leaves(tuple(inputs)) + leaves(got) + consts)
-        ops = B * sweep_ops(meta, name != "cp_sweep_fused",
+        ops = batch * sweep_ops(meta, name != "cp_sweep_fused",
                             name == "candidate_sweep_fused")
         source, replaces = SWEEP_KERNELS[name]
         rows.append(kernel_row(row_name(name, tag), source, replaces,
                                max_err, time_ms(kernel), time_ms(plain),
-                               nbytes, ops, card))
+                               nbytes, ops, card, batch=batch))
         report_cost_reads(row_name(name, tag), body, COST_PASSES[name],
-                          data, B, rows[-1]["ms"], card)
+                          data, batch, rows[-1]["ms"], card)
     return rows
 
 
@@ -957,20 +979,18 @@ def step_kernel_checks(data, meta, spec, res2, card, opts, tag=None,
 
 
 def launch_counts():
-    from spock_tpu_torch.ops import cuda_kernels, spstep, sweep_kernels
+    from spock_tpu_torch.utils import runinfo
 
-    return dict(sweep_kernels.LAUNCHES, **spstep.LAUNCHES,
-                prox_h_conj=cuda_kernels.LAUNCHES)
+    return runinfo.launches()
 
 
 def reset_counts():
-    from spock_tpu_torch.ops import cuda_kernels, spstep, sweep_kernels
+    """Every wrapper's launch count and the retrial counters set to 0."""
+    from spock_tpu_torch.ops import spstep
+    from spock_tpu_torch.utils import runinfo
 
-    cuda_kernels.LAUNCHES = 0
+    runinfo.reset_launches()
     spstep.reset_retrials()
-    for counts in (sweep_kernels.LAUNCHES, spstep.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
 
 
 def check_node_body(counts, label, kernels):
@@ -2589,6 +2609,260 @@ def lane_farm(data, meta, x0, ws, card):
                 farm_iterations_run=res.run["executed"])
 
 
+def carry_bytes(state, lanes) -> float:
+    """Bytes a lane of the fused farm's carry (every tensor of SPCarryF:
+    ten (z, v) pairs and the per-lane scalars)."""
+    import dataclasses
+
+    from spock_tpu_torch.zv import leaves
+
+    sp = state["sp"]
+    return nbytes_of([a for f in dataclasses.fields(sp)
+                      for a in leaves(getattr(sp, f.name))
+                      if torch.is_tensor(a)]) / lanes
+
+
+def big_step_rows(data, meta, res, card, opts, counts):
+    """Phase 10's kernel rows: the step kernels at BIG_B lanes on a carry
+    one iteration into a solve from the BIG_B farm's final state.  Each
+    launch at BIG_B equals, bitwise, its launches on each block of B lanes
+    (which phase 3 holds against the plain version in float64); against
+    the float32 plain version at BIG_B, the K1/K2/loop decisions agree lane
+    by lane and max_abs_err is over the lanes that agree (the Anderson
+    weights apart, as in phase 3)."""
+    from spock_tpu_torch.algorithms import supermann as sp
+    from spock_tpu_torch.ops import spstep, sweep_kernels
+    from spock_tpu_torch.problem import step_size
+    from spock_tpu_torch.zv import leaves, tmap
+
+    c = step_carry(data, meta, res, opts)
+    phase, act = c.it % 3, ~c.done
+    ones = torch.ones_like(c.r_safe)
+    knobs = dict(c1=opts.c1, sigma_k2=opts.sigma_k2, lam=opts.lam,
+                 lam_sp=opts.lam_sp)
+    g = step_size(data)
+    consts = sweep_kernels._consts(data, meta)[:sweep_kernels.N_CONSTS]
+    args = sp.step_inputs(c, opts, phase, act, c.cache_valid, c.r_safe,
+                          ones)
+    blocks = [slice(k, k + B) for k in range(0, BIG_B, B)]
+
+    def lanes_of(tree, sl):
+        return tmap(lambda a: a[sl] if torch.is_tensor(a) else a, tree)
+
+    def same_by_block(name, got, launch):
+        for sl in blocks:
+            part = launch(sl)
+            for a, b in zip(leaves(lanes_of(got, sl)), leaves(part)):
+                check(torch.equal(a, b),
+                      f"{name} at {BIG_B} lanes differs from its launch on "
+                      f"lanes {sl.start}:{sl.stop} by "
+                      f"{abs_err(a.double(), b.double())}")
+
+    def agreement(name, got, ref):
+        agree = (got[-1][:, :3] == ref[-1][:, :3]).all(dim=1)
+        err = max(abs_err(a[agree], b[agree])
+                  for a, b in zip(leaves(got[:-1]), leaves(ref[:-1])))
+        err = max(err, abs_err(got[-1][agree, :OC_G0],
+                               ref[-1][agree, :OC_G0]))
+        check(not math.isnan(err), f"{name}: float32 outputs disagree")
+        return int(agree.sum()), err
+
+    rows = []
+    # ---- #7, tau = 1 with the carry's cache flags ----
+    name = f"sp_step_fused_tau1[B{BIG_B}]"
+
+    def tau1(a=args):
+        return spstep.sp_step_fused(data, meta, *a, g, g, **knobs)
+
+    got = tau1()
+    same_by_block(name, got[:7],
+                  lambda sl: tau1(lanes_of(args, sl))[:7])
+    ref = spstep.sp_step_ref(data, meta, *args, g, g, **knobs)
+    torch.cuda.synchronize()
+    agree, err = agreement(name, got[:7], ref[:7])
+    print(f"[big] {name}: equal bitwise to its launches on {len(blocks)} "
+          f"blocks of {B} lanes; float32 decisions agree with the plain "
+          f"version on {agree}/{BIG_B} lanes, max_abs_err on them {err:.3e} "
+          f"[{card}]", flush=True)
+    nbytes, ops = step_bytes_ops(meta, args, got, consts)
+    rows.append(kernel_row(
+        name, STEP_SOURCE, STEP_ROWS["sp_step_fused_tau1"], err, time_ms(tau1),
+        time_ms(lambda: spstep.sp_step_ref(data, meta, *args, g, g, **knobs),
+                reps=BIG_PLAIN_REPS, warmup=1, spin=4 * SPIN_CYCLES),
+        nbytes, ops, card, batch=BIG_B))
+    rows[-1]["launches"] = counts["sp_step_fused"]
+
+    # ---- #6, the backtrack of the lanes that launch leaves looping ----
+    name = f"sp_step_backtrack[B{BIG_B}]"
+    bt = (opts.beta, opts.max_backtracks)
+    zt, st = tmap(torch.clone, got[0]), tmap(torch.clone, got[3])
+
+    def backtrack(sl=slice(None), plain=False, z=None, s_=None):
+        a = lanes_of(args, sl)
+        o = got[6][sl]
+        fn = spstep.sp_backtrack_ref if plain else spstep.sp_step_backtrack
+        z = tmap(torch.clone, lanes_of(zt, sl)) if z is None else z
+        s_ = tmap(torch.clone, lanes_of(st, sl)) if s_ is None else s_
+        out = fn(data, meta, *a[:2], lanes_of(got[7], sl), a[9], a[10], o,
+                 z, s_, g, g, *bt, **knobs)
+        return z, s_, (out[0] if plain else out)
+
+    bgot = backtrack()
+    same_by_block(name, bgot, lambda sl: backtrack(sl))
+    bref = backtrack(plain=True)
+    torch.cuda.synchronize()
+    agree, err = agreement(name, bgot, bref)
+    looping = int((got[6][:, spstep.OC_LOOP] > 0.5).sum())
+    trials = int(bgot[2][:, spstep.OC_TRIALS].sum())
+    print(f"[big] {name}: {looping} looping lanes, {trials} trials; equal "
+          f"bitwise to its launches on {len(blocks)} blocks of {B} lanes; "
+          f"float32 decisions agree with the plain version on {agree}/"
+          f"{BIG_B} lanes, max_abs_err on them {err:.3e} [{card}]",
+          flush=True)
+    z_in, s_in = tmap(torch.clone, zt), tmap(torch.clone, st)
+    nbytes, ops = backtrack_bytes_ops(meta, looping, trials,
+                                      nbytes_of(leaves(args[:2])), consts,
+                                      lanes=BIG_B)
+    rows.append(kernel_row(
+        name, STEP_SOURCE, STEP_ROWS["sp_step_fused"], err,
+        time_ms(lambda: backtrack(z=z_in, s_=s_in)),
+        time_ms(lambda: backtrack(plain=True, z=z_in, s_=s_in),
+                reps=BIG_PLAIN_REPS, warmup=1, spin=4 * SPIN_CYCLES),
+        nbytes, ops, card, batch=BIG_B))
+    rows[-1]["launches"] = counts["sp_step_backtrack"]
+    return rows
+
+
+def big_farm(data, meta, x0, ws, ref, card, opts):
+    """10: the main path above B = 128.  The headline farm's cold window
+    (COLD_STEPS) at BIG_B lanes on the fused step in graphed chunks, with
+    the launch counts set to 0 just before and read just after: its first B
+    lanes take the headline's x0 and ws, the others draws from
+    default_rng(BIG_SEED).  Those B lanes must equal ``ref`` (4a's graphed
+    cold window at B lanes) bitwise.  Prints the step kernels' launches, ms
+    per farm iteration, solves/s, the peak device memory and the bytes a
+    lane takes against the carry's; then the step kernels' rows at BIG_B."""
+    from spock_tpu_torch import mpc
+    from spock_tpu_torch.zv import leaves
+
+    rng = np.random.default_rng(BIG_SEED)
+    extra = BIG_B - B
+    x0_big = torch.cat([x0, torch.tensor(
+        rng.uniform(-0.6, 0.6, (extra, meta.nx)), dtype=x0.dtype,
+        device=x0.device)])
+    ws_big = torch.cat([ws, torch.tensor(
+        rng.integers(0, D, size=(ws.shape[0], extra)), device=ws.device)],
+        dim=1)
+    mpc.clear_graphs()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = mpc.simulate_async(data, meta, x0_big, ws_big, TOL,
+                             n_steps=COLD_STEPS, max_total_iters=COLD_CAP,
+                             iters_per_launch=ITERS_PER_LAUNCH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(bool((res.steps_done == COLD_STEPS).all()),
+          f"the {BIG_B}-lane farm's cold window is incomplete after "
+          f"{res.total_iterations} farm iterations")
+    check_step_farm(counts, res.run["executed"], f"{BIG_B}-lane")
+    check(res.run["graphed"] and res.run["chunks"] >= 1,
+          f"the {BIG_B}-lane farm did not run in graph replays: {res.run}")
+    for label, a, b in (
+            [("steps_done", res.steps_done[:B], ref.steps_done),
+             ("iters_per_step", res.iters_per_step[:, :B],
+              ref.iters_per_step),
+             ("us", res.us[:, :B], ref.us), ("xs", res.xs[:B], ref.xs)]
+            + [(f"z/v leaf {i}", a[:B], b) for i, (a, b) in enumerate(zip(
+                leaves((res.z, res.v)), leaves((ref.z, ref.v))))]):
+        check(torch.equal(a, b),
+              f"the first {B} lanes of the {BIG_B}-lane farm differ from "
+              f"the {B}-lane farm in {label} by "
+              f"{abs_err(a.double(), b.double())}")
+    lane_bytes = carry_bytes(res.state, BIG_B)
+    nums = dict(
+        lanes=BIG_B, farm_iterations=res.total_iterations,
+        farm_iterations_run=res.run["executed"], wall_s=wall,
+        ms_per_farm_iteration=1e3 * wall / res.run["executed"],
+        solves_per_s=COLD_STEPS * BIG_B / wall,
+        launches={k: c for k, c in counts.items() if c},
+        peak_bytes=peak, held_before_bytes=held,
+        measured_bytes_per_lane=(peak - held) / BIG_B,
+        carry_bytes_per_lane=lane_bytes, run=res.run)
+    print(f"[big] the headline farm at {BIG_B} lanes, {COLD_STEPS} cold "
+          f"steps on the fused step in graphed chunks of {ITERS_PER_LAUNCH}: "
+          f"{res.total_iterations} farm iterations ({res.run['executed']} "
+          f"run) in {wall:.2f} s, {nums['ms_per_farm_iteration']:.3f} ms per "
+          f"farm iteration run (captures and warm-up included), "
+          f"{nums['solves_per_s']:.2f} solves/s; launches sp_step_fused "
+          f"{counts['sp_step_fused']}, sp_step_backtrack "
+          f"{counts['sp_step_backtrack']}; peak {peak / 1e9:.2f} GB, "
+          f"{held / 1e9:.2f} GB held before: "
+          f"{nums['measured_bytes_per_lane'] / 1e6:.3f} MB a lane against "
+          f"the carry's {lane_bytes / 1e6:.3f} MB; its first {B} lanes equal "
+          f"the {B}-lane farm's bitwise (us, xs, z, v, iters_per_step, "
+          f"steps_done) [{card}]", flush=True)
+    rows = big_step_rows(data, meta, res, card, opts, counts)
+    mpc.clear_graphs()
+    torch.cuda.empty_cache()
+    return rows, nums
+
+
+def race_rows(card, device):
+    """10b: the sweep kernels on the element body at the horizon race's
+    shape (server_heat N=RACE_N, nx = nu = RACE_NX, one lane): #2-#4
+    against their plain versions on random inputs, timed; their launches
+    from a cold one-lane SPOCK Solver (#3, #4, ``sp_body``: the step
+    kernels stop at 32 states) and CP Solver (#2) from the race's first
+    x0, each with the counts set to 0 just before and read just after."""
+    from spock_tpu_torch import build
+    from spock_tpu_torch.algorithms import supermann as sp
+    from spock_tpu_torch.models import server_heat
+    from spock_tpu_torch.ops import sweep_kernels
+    from spock_tpu_torch.solver import Solver
+
+    spec = server_heat.make_spec(N=RACE_N, nx=RACE_NX, d=D)
+    data, meta = build(spec, dtype=torch.float32, device=device)
+    check(sweep_kernels.sweep_body(meta, data, data.dtype) == "element"
+          and not sp.use_fused_step(data, meta, sp.SuperMannOpts()),
+          f"nx={RACE_NX}: not on the sweep kernels' element body")
+    tag = f"nx{RACE_NX} N{RACE_N} B1"
+    rows = sweep_kernel_checks(data, meta, card, tag=tag, batch=1)
+    x0 = np.random.default_rng(0).uniform(-0.1, 0.1, meta.nx)
+    out = {}
+    for alg, names in (("spock", ("cp_sweep_metric_fused",
+                                  "candidate_sweep_fused")),
+                       ("cp", ("cp_sweep_fused",))):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = Solver(data, meta, algorithm=alg, device=device).solve(
+            x0, tol=TOL)
+        iters = int(res.iterations)
+        wall_s = time.perf_counter() - t0
+        counts = launch_counts()
+        sweeps = sum(counts[k] for k in SWEEP_LAUNCHES)
+        check(bool(res.converged) and counts["cp_sweep_element_body"] == sweeps
+              and counts["cp_sweep_node_body"] == 0
+              and all(counts[n] >= 1 for n in names),
+              f"race {alg} solve: converged {bool(res.converged)} in {iters} "
+              f"iterations, launches {counts}")
+        for row in rows:
+            if row["name"].split("[")[0] in names:
+                row["launches"] = counts[row["name"].split("[")[0]]
+        out[alg] = dict(iterations=iters, wall_s=wall_s,
+                        ms_per_iteration=1e3 * wall_s / iters,
+                        launches={k: c for k, c in counts.items() if c})
+        print(f"[race] cold one-lane {alg} Solver at N={RACE_N} "
+              f"nx={RACE_NX}: {iters} iterations in {wall_s:.2f} s "
+              f"({out[alg]['ms_per_iteration']:.2f} ms each), launches "
+              f"{out[alg]['launches']} [{card}]", flush=True)
+    return rows, out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; nothing was run")
@@ -2882,6 +3156,19 @@ def smoke(card, device, pool, built):
     stamp("9b done")
     cfg4["lanes"] = lane_farm(data, meta, x0, ws, card)
     stamp("9c done")
+    # ---- 10. the main path above B = 128: the cold window at BIG_B
+    # lanes, its first B lanes held bitwise against 4a's, and the step
+    # kernels at BIG_B ----
+    big_rows, big = big_farm(data, meta, x0, ws, res1, card, opts)
+    check(all(k["launches"] for k in big_rows),
+          f"a step kernel ran no launch in the {BIG_B}-lane farm")
+    kernels += big_rows
+    stamp("10 done")
+    race, race_solves = race_rows(card, device)
+    check(all(k["launches"] for k in race),
+          "a sweep kernel ran no launch in the race's solves")
+    kernels += race
+    stamp("10b done")
     # config 4's rows carry the launches of config 4's own path, its solve:
     # the composed path, which launches none of them (9b holds that).  They
     # are the only rows exempt from the launch check; their kernels'
@@ -2905,7 +3192,8 @@ def smoke(card, device, pool, built):
                   composed_farm=cnums, cp_solve=cp, broyden_solve=broyden,
                   controls_max_err=err, profile=prof, wide=wide,
                   element_body_solves=element, ptxas=ptxas, smem_plans=plans,
-                  metric_apply=metric_extra, risk_sweep=cfg3, bigtree=cfg4)
+                  metric_apply=metric_extra, risk_sweep=cfg3, bigtree=cfg4,
+                  big_farm=big, race=race_solves)
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)

@@ -3,7 +3,8 @@
 CUDA graph, with no host sync inside an iteration.  Held here: the graphed
 farm bitwise equal to the eager one, a resumed graphed farm equal to one
 run, a capture that meets a host sync raising, and a farm iteration that
-makes no host sync (``torch.cuda.set_sync_debug_mode("error")``).  The
+makes no host sync (``torch.cuda.set_sync_debug_mode("error")``), and the
+first 128 lanes of a 1,024-lane farm equal to the 128-lane farm.  The
 tests need a card and skip without one; the file imports no JAX:
   python -m pytest tests/test_torch_farm_graph.py -m cuda --noconftest
   -o addopts="" -p no:cacheprovider
@@ -147,3 +148,37 @@ def test_farm_iteration_makes_no_host_sync():
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert int(state["total"]) == 4
+
+
+@pytest.mark.cuda
+def test_farm_lanes_do_not_depend_on_the_batch():
+    """The main path above B = 128, at a small depth: the cold window (2
+    steps) of the server_heat N=4 nx=nu=20 farm on the fused step in
+    graphed chunks at 1,024 lanes, its first 128 lanes those of the
+    128-lane farm and the others drawn from another seed.  A lane is one
+    block of each step launch and a done lane is frozen, so those 128
+    lanes equal the 128-lane farm's bitwise (chip_smoke.py phase 10 holds
+    the same at N=10)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    data, meta = build(server_heat.make_spec(N=4, nx=20, d=2),
+                       dtype=torch.float32)
+    small, big, steps = 128, 1024, 2
+    rng = np.random.default_rng(0)
+    x0 = torch.tensor(rng.uniform(-0.6, 0.6, (big, meta.nx)),
+                      dtype=torch.float32, device="cuda")
+    ws = torch.tensor(rng.integers(0, 2, (steps, big)), device="cuda")
+    mpc.clear_graphs()
+    ref = mpc.simulate_async(data, meta, x0[:small], ws[:, :small], TOL,
+                             n_steps=steps, iters_per_launch=6)
+    got = mpc.simulate_async(data, meta, x0, ws, TOL, n_steps=steps,
+                             iters_per_launch=6)
+    mpc.clear_graphs()
+    assert got.run["graphed"] and got.run["chunks"] >= 1
+    assert bool((got.steps_done == steps).all())
+    assert torch.equal(got.steps_done[:small], ref.steps_done)
+    assert torch.equal(got.iters_per_step[:, :small], ref.iters_per_step)
+    assert torch.equal(got.us[:, :small], ref.us)
+    assert torch.equal(got.xs[:small], ref.xs)
+    for a, b in zip(leaves((got.z, got.v)), leaves((ref.z, ref.v))):
+        assert torch.equal(a[:small], b)

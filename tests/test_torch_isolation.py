@@ -120,6 +120,51 @@ def test_oracles_and_utilities_load_no_jax(tmp_path):
     assert "LOADED []" in out.stdout, out.stdout
 
 
+def test_examples_load_no_jax():
+    """The port's examples (``examples/torch_*.py``) import neither JAX nor
+    the JAX package, directly or through what they import: every module a
+    script names in an import statement (at its top or inside a function)
+    is imported in a fresh process with the scripts themselves, and
+    nothing of JAX or the JAX package may then be loaded."""
+    import ast
+
+    scripts = sorted((REPO / "examples").glob("torch_*.py"))
+    assert len(scripts) == 9, scripts
+    names = set()
+    for path in scripts:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names.update(a.name for a in node.names)
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names.add(node.module)
+                names.update(f"{node.module}.{a.name}" for a in node.names)
+    bad = sorted(n for n in names if n.split(".")[0] in ("jax",
+                                                         "spock_tpu"))
+    assert not bad, bad
+    code = (
+        "import importlib, importlib.util, sys\n"
+        f"sys.path[:0] = [{str(REPO)!r}, {str(REPO / 'examples')!r}]\n"
+        f"for name in {sorted(names)!r}:\n"
+        "    try:\n"
+        "        importlib.import_module(name)\n"
+        "    except ModuleNotFoundError:\n"
+        "        mod, _, attr = name.rpartition('.')\n"
+        "        assert hasattr(importlib.import_module(mod), attr), name\n"
+        f"for path in {[str(p) for p in scripts]!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('s', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or"
+        " m.startswith('jax.') or m == 'spock_tpu' or"
+        " m.startswith('spock_tpu.'))\n"
+        "print('LOADED', bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 def test_missing_gxx_raises(monkeypatch, tmp_path):
     """Without g++ the native oracle's library cannot be built: a solve
     raises, and no library is loaded in its place."""
