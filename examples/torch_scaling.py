@@ -7,8 +7,11 @@ horizon, as the JAX script draws them), each timed:
 
 * ``spock`` and ``cp``: the port's ``Solver`` in float32 on the card.
   nx = 50 is above the node body's 32 (``sweep_kernels.node_fits``), so
-  SPOCK runs ``sp_body`` on the sweep kernels' element body (#3, #4) and
-  CP runs ``cp_sweep_fused`` (#2) on it; each row carries its launches.
+  SPOCK runs the fused step on the element instances of the step kernels
+  (#7 ``sp_step_fused`` and #6 ``sp_step_backtrack``, one launch each per
+  iteration) and CP runs ``cp_sweep_fused`` (#2) on the sweep kernels'
+  element body; each row carries its launches and its path flags (the
+  bodies in ``sweep_body`` and ``step_body``).
   A 2-iteration solve ahead of each timed one takes the first launches;
 * ``native_sp`` and ``native_cp``: the native C++ solver, float64, one
   core;

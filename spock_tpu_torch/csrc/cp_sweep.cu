@@ -37,8 +37,9 @@
 //
 // Design.  One 512-thread block per lane, on one of two bodies, chosen on
 // the host by the problem's class and passed in:
-//   * the node body (step_body.cuh's step_sweep, which the step kernels of
-//     sp_step.cu also run), for nx, nu and polytope rows of at most 32: a
+//   * the node body (step_body.cuh's step_sweep, which the node instances
+//     of sp_step.cu's step kernels also run), for nx, nu, ny + 2 d and
+//     polytope rows of at most 32: a
 //     node per thread with its columns in registers, uniform cost matrices
 //     staged in shared memory and per-node ones read from node-minor copies
 //     (coalesced over a warp's consecutive nodes), the S2 and cone
@@ -49,10 +50,12 @@
 //     cp_sweep_fused and cp_sweep_metric_fused launches share one instance
 //     (the metric pass is skipped at run time), so the source compiles two
 //     sweeps per value type;
-//   * the element body (sweep_body.cuh's sweep_lane) for wider problems: the
+//   * the element body (sweep_body.cuh's sweep_lane, which the element
+//     instances of sp_step.cu also run) for wider problems, of any size: the
 //     threads stride over the (row, node) elements of each block, every
 //     element of L and L' computes its own row dot product, and four
-//     wrapper-allocated scratch arrays hold the Riccati intermediates.
+//     wrapper-allocated scratch arrays hold the Riccati intermediates and
+//     the S2 projector's arguments.
 // Per-lane reductions are fixed-order block reductions (deterministic, no
 // atomics).  At B = 128 a launch fills 128 of the 132 SMs with one block
 // each.

@@ -18,7 +18,8 @@
 //
 // Design.  M is a map with no barrier, so a lane is not tied to a block.
 // Two bodies, chosen on the host by the problem's class and passed in:
-//   * the node body, for nx, nu and polytope rows of at most 32:
+//   * the node body, for nx, nu, ny + 2 d and polytope rows of at most 32
+//     (step_body.cuh's node_fits, the rule of the sweep kernels):
 //     step_body.cuh's metric_node, the pass that the sweep kernels run for
 //     M r, with a residual that reads nothing.  A thread owns one node of
 //     one lane and writes every entry of M x that the node owns, its input
@@ -37,10 +38,10 @@
 //     their neighbours on the card (kernel_variants.py, PERF.md).  The
 //     warps of a block do not share per-node cost rows through the L1 in
 //     practice, and staging a tile's rows in shared memory ran slower;
-//   * the element body above 32: one block per lane whose threads stride over
-//     the (row, node) elements of each output block, each element computing
-//     its own row of L or L' from the lane's input in device memory
-//     (sweep_common.cuh's L_at and LT_at).
+//   * the element body for every other problem: one block per lane whose
+//     threads stride over the (row, node) elements of each output block,
+//     each element computing its own row of L or L' from the lane's input
+//     in device memory (sweep_common.cuh's L_at and LT_at).
 
 #include "step_body.cuh"
 

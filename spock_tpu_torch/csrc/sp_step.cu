@@ -10,8 +10,8 @@
 // also holds the wrappers, the launch counts and the checks.
 //
 // It takes the JAX step kernels' problem class: uniform costs, risk data
-// uniform or per node, with or without polytope rows (and nx, nu, ny + 2 d
-// and the polytope rows of a node at most 32).
+// uniform or per node, with or without polytope rows, at any nx, nu, ny + 2 d
+// and polytope rows.
 //
 // sp_step, one block per lane, from its scalar pack (active, valid1,
 // valid2, cache, r_safe, q_pow, rnorm_c, nMrz_c, nMrv_c, tau):
@@ -57,13 +57,24 @@
 // scalars.
 //
 // Design.  One 512-thread block per lane (16 warps; its sweeps need the
-// whole lane).  The sweeps (step_body.cuh) compute L and L' a node per
-// thread from columns held in registers and matrices staged once in shared
-// memory, fuse the S2 projector and the cone projections into the passes
-// that form their arguments, compute M r and M d in one traversal, and run
-// the Riccati sweeps a node per thread group with the stage's matrices and
-// costates in shared memory (135 KB of it in float32, 221 KB in float64 at
-// the headline size).  The streaming passes of phases 2 and 4 load four
+// whole lane).  Each kernel has two instances, one per sweep body, chosen on
+// the host by the problem's class and passed in (as for cp_sweep.cu); the
+// phases around the sweeps are the same code in both:
+//   * the node instance, where nx, nu, ny + 2 d and the polytope rows of a
+//     node are at most 32 and the shared-memory plan fits: its sweeps
+//     (step_body.cuh) compute L and L' a node per thread from columns held
+//     in registers and matrices staged once in shared memory, fuse the S2
+//     projector and the cone projections into the passes that form their
+//     arguments, compute M r and M d in one traversal, and run the Riccati
+//     sweeps a node per thread group with the stage's matrices and costates
+//     in shared memory (135 KB of it in float32, 221 KB in float64 at the
+//     headline size);
+//   * the element instance for every other problem: its sweeps are
+//     sweep_body.cuh's sweep_lane, the threads striding over the (row, node)
+//     elements of each block, with four wrapper-allocated scratch arrays in
+//     device memory for the Riccati intermediates (and the S2 arguments);
+//     its dynamic shared memory is the reduction scratch alone.
+// The streaming passes of phases 2 and 4 load four
 // elements a thread before they store, neighbouring threads on neighbouring
 // addresses.  A backtrack runs no phase 1-2 and only for the looping
 // lanes, all of an iteration's trials in one launch.  On the H100 a lane is
@@ -72,8 +83,10 @@
 // one lane takes most of the time of one of all 128 (chip_smoke.py times
 // both).
 //
-// Built in two halves by two nvcc processes at once (ops/_build.py):
-// SPOCK_PART 4 compiles the float entries, 8 the double ones.
+// Built in four parts by four nvcc processes at once (ops/_build.py):
+// SPOCK_PART 4 compiles the float instances, 8 the double ones; SPOCK_BODY 1
+// the node instances and the C entries, 0 the element instances and their
+// launchers.  Without them, one nvcc builds all.
 
 // the step kernels' class has uniform costs: no per-node paths in the body
 #define SPOCK_NODE_COSTS 0
@@ -82,8 +95,27 @@
 #ifndef SPOCK_PART
 #define SPOCK_PART 0
 #endif
+#ifndef SPOCK_BODY
+#define SPOCK_BODY 2
+#endif
 
 namespace spock {
+
+// The body codes of the C entries (ops/spstep.py's, sweep_kernels.py's
+// BODY_CODE).
+constexpr int kElementBody = 0;
+constexpr int kNodeBody = 1;
+
+// The element instances' launchers (outside the anonymous namespace: they
+// link across the parts).
+template <typename T>
+int launch_step_element(const void* ptrs, const int* dims,
+                        const double* coefs, int B, void* stream);
+template <typename T>
+int launch_backtrack_element(const void* ptrs, const int* dims,
+                             const double* coefs, int B, int max_bt,
+                             void* stream);
+
 namespace {
 
 // Slots of the [B, 10] scalar pack, of the [B, 16] output scalars (the JAX
@@ -114,8 +146,8 @@ struct StepParams {
   const T* scal;  // [B, kScIn]
   T* oscal;       // [B, kScOut]
   T* keep;        // [B, kKeep]
-  T* gdv;         // scratch [B, n_nl ldu]
-  T* qg;          // scratch [B, qsize] (costates outside shared memory)
+  T* gdv;         // node scratch [B, n_nl ldu]
+  T* qg;          // node scratch [B, qsize] (costates outside shared memory)
   T c1, sigma_k2, lam, lam_sp;
 };
 
@@ -130,8 +162,8 @@ struct BacktrackParams {
   const T* keep;               // [B, kKeep]
   const T* oscal1;             // [B, kScOut]: the tau = 1 launch's scalars
   T* oscal;                    // [B, kScOut]
-  T* gdv;                      // scratch [B, n_nl ldu]
-  T* qg;                       // scratch [B, qsize]
+  T* gdv;                      // node scratch [B, n_nl ldu]
+  T* qg;                       // node scratch [B, qsize]
   unsigned long long* count;   // [2]: lanes looped, trials made (added to)
   T c1, sigma_k2, lam, lam_sp, beta;
   int max_bt;
@@ -176,6 +208,30 @@ __device__ __forceinline__ void stream(int size, Load&& load, Use&& use) {
       const int i = i0 + k * kThreads;
       if (i < size) use(i, v[k]);
     }
+  }
+}
+
+// One sweep of lane ``lane`` on the instance's body, at z (+ tau d when DIR)
+// into the pair o, with <r, M r> and the inf-norms of M r (and with DIR
+// <r, M d> and those of M d), M r not stored.  z, d and o are given as the
+// launch's pairs (the element body's accessors) and as the lane's pointers
+// (the node body's).  Starts and ends with a barrier.
+template <typename T, int BODY, bool DIR, class Params>
+__device__ __forceinline__ SweepRed<T> lane_sweep(
+    const Params& P, int64_t lane, const Pair<T>& z, const Lane<T>& zl,
+    const Pair<T>& d, const Lane<T>& dl, T tau, const Pair<T>& o,
+    const Lane<T>& ol, T* sm) {
+  const Geo& g = P.x.k.g;
+  const T* x0 = P.x0 + lane * g.nx;
+  if constexpr (BODY == kNodeBody) {
+    return step_sweep<T, DIR>(P.x, zl, dl, tau, ol, nullptr, true,
+                              P.gdv + lane * g.n_nl * P.x.s.ldu,
+                              P.qg + lane * P.x.s.qsize, x0, sm);
+  } else {
+    __syncthreads();
+    const Cand<T, DIR> c{Ref<T>{&z, &g, lane}, Ref<T>{&d, &g, lane}, tau};
+    const Ref<T> out{&o, &g, lane};
+    return sweep_lane<T, true, DIR>(P.x.k, lane, c, out, nullptr, x0, sm);
   }
 }
 
@@ -264,7 +320,7 @@ __device__ void commit(const Params& P, const SweepRed<T>& cand,
   }
 }
 
-template <typename T>
+template <typename T, int BODY>
 __global__ void __launch_bounds__(kThreads)
 sp_step_kernel(const __grid_constant__ StepParams<T> P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -281,9 +337,6 @@ sp_step_kernel(const __grid_constant__ StepParams<T> P) {
   const T v2 = sc[SC_VALID2];
   const bool cached = sc[SC_CACHE] > T(0);
   const T tau = sc[SC_TAU];
-  const T* x0 = P.x0 + lane * g.nx;
-  T* gdv = P.gdv + lane * g.n_nl * P.x.s.ldu;
-  T* qg = P.qg + lane * P.x.s.qsize;
   make_lane(lz, P.z, lane, g);
   make_lane(lzb, cached ? P.cache : P.fresh, lane, g);
   make_lane(lrp, P.rp, lane, g);
@@ -300,14 +353,14 @@ sp_step_kernel(const __grid_constant__ StepParams<T> P) {
   make_lane(lp, P.p, lane, g);
   make_lane(lf, P.fresh, lane, g);
   make_lane(ld, P.d, lane, g);
-  stage_consts(P.x, sm);
+  if constexpr (BODY == kNodeBody) stage_consts(P.x, sm);
   __syncthreads();
 
   // ---- phase 1: the fresh sweep, skipped by a lane with a valid cache ----
   SweepRed<T> fresh{T(0), T(0), T(0), T(0), T(0), T(0)};
   if (!cached) {
-    fresh = step_sweep<T, false>(P.x, lz, lz, T(0), lf, nullptr, true, gdv,
-                                 qg, x0, sm);
+    fresh = lane_sweep<T, BODY, false>(P, lane, P.z, lz, P.z, lz, T(0),
+                                       P.fresh, lf, sm);
   }
 
   // ---- phase 2: residual, Anderson rows, Gram sums ----
@@ -405,8 +458,7 @@ sp_step_kernel(const __grid_constant__ StepParams<T> P) {
 
   // ---- phase 3: the candidate sweep at (z, v) + tau d into w ----
   const SweepRed<T> cand =
-      step_sweep<T, true>(P.x, lz, ld, tau, lw, nullptr, true, gdv, qg, x0,
-                          sm);
+      lane_sweep<T, BODY, true>(P, lane, P.z, lz, P.d, ld, tau, P.w, lw, sm);
 
   // ---- phase 4: K1 / K2 / fallback, the commit and the kept scalars ----
   const CommitIn<T> ci{cached ? sc[SC_RNC] : root(nonneg(fresh.dot)),
@@ -428,7 +480,7 @@ sp_step_kernel(const __grid_constant__ StepParams<T> P) {
   }
 }
 
-template <typename T>
+template <typename T, int BODY>
 __global__ void __launch_bounds__(kThreads)
 sp_backtrack_kernel(const __grid_constant__ BacktrackParams<T> P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -453,22 +505,18 @@ sp_backtrack_kernel(const __grid_constant__ BacktrackParams<T> P) {
   make_lane(lw, P.w, lane, g);
   make_lane(lzn, P.zn, lane, g);
   make_lane(ls, P.s, lane, g);
-  stage_consts(P.x, sm);
+  if constexpr (BODY == kNodeBody) stage_consts(P.x, sm);
   __syncthreads();
 
-  T* gdv = P.gdv + lane * g.n_nl * P.x.s.ldu;
-  T* qg = P.qg + lane * P.x.s.qsize;
-  const T* x0 = P.x0 + lane * g.nx;
   T tau = T(1);
   int trials = 0;
   while (trials < P.max_bt) {
     tau *= P.beta;
     ++trials;
-    // step_sweep starts and ends with a barrier: the previous trial's
-    // commit has finished reading w and the choice
+    // the sweep starts and ends with a barrier: the previous trial's commit
+    // has finished reading w and the choice
     const SweepRed<T> cand =
-        step_sweep<T, true>(P.x, lz, ld, tau, lw, nullptr, true, gdv, qg, x0,
-                            sm);
+        lane_sweep<T, BODY, true>(P, lane, P.z, lz, P.d, ld, tau, P.w, lw, sm);
     const CommitIn<T> ci{kp[KP_RN], kp[KP_NMZ], kp[KP_NMV], sc[SC_RSAFE],
                          sc[SC_QPOW], tau, kp[KP_G0], kp[KP_G1], kp[KP_G2],
                          true};
@@ -485,18 +533,28 @@ sp_backtrack_kernel(const __grid_constant__ BacktrackParams<T> P) {
   }
 }
 
-// The constants of a launch from the host pointers p (make_consts's order),
-// dims and coefs (gamma, sigma, c1, sigma_k2, lam, lam_sp); false on a
-// problem outside the kernel's class or a layout that does not fit.
-template <typename T, class Params>
+// The constants of a launch from the host pointers p (make_consts's order,
+// the element body's four scratch pointers included), dims and coefs (gamma,
+// sigma, c1, sigma_k2, lam, lam_sp); false on a problem outside the
+// instance's class, a layout that does not fit or missing scratch.  The
+// element instance's dynamic shared memory is the reduction scratch.
+template <typename T, int BODY, class Params>
 bool make_params(Params& P, void* const* p, const int* dims,
                  const double* coefs) {
   if (!make_consts(P.x.k, p, dims, coefs[0], coefs[1])) return false;
   const Geo& g = P.x.k.g;
   if (dims[DIM_PN_Q] || dims[DIM_PN_R] || dims[DIM_PN_QN]) return false;
-  if (!node_fits(g) ||
-      !plan_smem(P.x.s, g, dims, static_cast<int>(sizeof(T)))) {
-    return false;
+  if constexpr (BODY == kNodeBody) {
+    if (!node_fits(g) ||
+        !plan_smem(P.x.s, g, dims, static_cast<int>(sizeof(T))) ||
+        !P.gdv || !P.qg) {
+      return false;
+    }
+  } else {
+    const SweepConsts<T>& k = P.x.k;
+    if (!k.gq || !k.gw || !k.gdv || !k.ginner) return false;
+    P.x.s = StepSmem{};
+    P.x.s.bytes = kMaxRed * kThreads * static_cast<int>(sizeof(T));
   }
   P.c1 = static_cast<T>(coefs[2]);
   P.sigma_k2 = static_cast<T>(coefs[3]);
@@ -522,19 +580,23 @@ void set_pairs(Pair<T>* const* pairs, int count, void* const* p) {
 //   [152, 266)  the 6 output pairs: z_new, w, r, s, y, p
 //   [266, 304)  the 2 kept pairs: fresh sweep, direction
 //   304 x0  305 scalar pack [B, 10]  306 output scalars [B, 16]
-//   307 kept scalars [B, 8]  308 dvec scratch  309 costate scratch
-//   [310, 338)  the sweep's constants, in make_consts's order (its four
-//               scratch pointers unused)
+//   307 kept scalars [B, 8]  308 dvec scratch  309 costate scratch (the
+//               node instance's; null for the element instance)
+//   [310, 338)  the sweep's constants, in make_consts's order, then its four
+//               scratch pointers (the element instance's; null for the node
+//               instance)
 constexpr int kStepPairs = kInPairs + kOutPairs + 2;
 
-template <typename T>
+template <typename T, int BODY>
 int launch_step(const void* ptrs, const int* dims, const double* coefs,
                 int B, void* stream) {
   if (B < 0) return static_cast<int>(cudaErrorInvalidValue);
   StepParams<T> P;
   void* const* p = static_cast<void* const*>(ptrs);
   constexpr int base = kStepPairs * kPairBlocks;
-  if (!make_params<T>(P, p + base + 6, dims, coefs)) {
+  P.gdv = static_cast<T*>(p[base + 4]);
+  P.qg = static_cast<T*>(p[base + 5]);
+  if (!make_params<T, BODY>(P, p + base + 6, dims, coefs)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Pair<T>* const pairs[] = {&P.z,  &P.cache, &P.rp, &P.sp, &P.a1r, &P.a2r,
@@ -545,9 +607,7 @@ int launch_step(const void* ptrs, const int* dims, const double* coefs,
   P.scal = static_cast<const T*>(p[base + 1]);
   P.oscal = static_cast<T*>(p[base + 2]);
   P.keep = static_cast<T*>(p[base + 3]);
-  P.gdv = static_cast<T*>(p[base + 4]);
-  P.qg = static_cast<T*>(p[base + 5]);
-  return launch_kernel(sp_step_kernel<T>, P, B, stream);
+  return launch_kernel(sp_step_kernel<T, BODY>, P, B, stream);
 }
 
 // Pointer order of sp_backtrack:
@@ -556,20 +616,23 @@ int launch_step(const void* ptrs, const int* dims, const double* coefs,
 //   [114, 133)  the candidate-sweep scratch pair, [B, ...]
 //   133 x0  134 scalar pack [B, 10]  135 kept scalars [B, 8]
 //   136 the tau = 1 launch's output scalars [B, 16]
-//   137 output scalars [B, 16]  138 dvec scratch  139 costate scratch
+//   137 output scalars [B, 16]  138 dvec scratch  139 costate scratch (the
+//               node instance's)
 //   140 counts [2] (int64: lanes looped, trials made; added to)
-//   [141, 169)  the sweep's constants, as for sp_step
+//   [141, 169)  the sweep's constants and its scratch, as for sp_step
 // coefs: as for sp_step, then beta.
 constexpr int kBacktrackPairs = 7;
 
-template <typename T>
+template <typename T, int BODY>
 int launch_backtrack(const void* ptrs, const int* dims, const double* coefs,
                      int B, int max_bt, void* stream) {
   if (B < 0 || max_bt < 0) return static_cast<int>(cudaErrorInvalidValue);
   BacktrackParams<T> P;
   void* const* p = static_cast<void* const*>(ptrs);
   constexpr int base = kBacktrackPairs * kPairBlocks;
-  if (!make_params<T>(P, p + base + 8, dims, coefs)) {
+  P.gdv = static_cast<T*>(p[base + 5]);
+  P.qg = static_cast<T*>(p[base + 6]);
+  if (!make_params<T, BODY>(P, p + base + 8, dims, coefs)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Pair<T>* const pairs[] = {&P.z, &P.cache, &P.fresh, &P.d,
@@ -580,53 +643,113 @@ int launch_backtrack(const void* ptrs, const int* dims, const double* coefs,
   P.keep = static_cast<const T*>(p[base + 2]);
   P.oscal1 = static_cast<const T*>(p[base + 3]);
   P.oscal = static_cast<T*>(p[base + 4]);
-  P.gdv = static_cast<T*>(p[base + 5]);
-  P.qg = static_cast<T*>(p[base + 6]);
   P.count = static_cast<unsigned long long*>(p[base + 7]);
   P.beta = static_cast<T>(coefs[6]);
   P.max_bt = max_bt;
-  return launch_kernel(sp_backtrack_kernel<T>, P, B, stream);
+  return launch_kernel(sp_backtrack_kernel<T, BODY>, P, B, stream);
 }
 
+#if SPOCK_BODY != 0
+// The instance of ``body``; an error for another code.
+template <typename T>
+int launch_step_body(const void* ptrs, const int* dims, const double* coefs,
+                     int body, int B, void* stream) {
+  if (body == kNodeBody) {
+    return launch_step<T, kNodeBody>(ptrs, dims, coefs, B, stream);
+  }
+  if (body == kElementBody) {
+    return launch_step_element<T>(ptrs, dims, coefs, B, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+int launch_backtrack_body(const void* ptrs, const int* dims,
+                          const double* coefs, int body, int B, int max_bt,
+                          void* stream) {
+  if (body == kNodeBody) {
+    return launch_backtrack<T, kNodeBody>(ptrs, dims, coefs, B, max_bt,
+                                          stream);
+  }
+  if (body == kElementBody) {
+    return launch_backtrack_element<T>(ptrs, dims, coefs, B, max_bt, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+#endif
+
 }  // namespace
+
+#if SPOCK_BODY != 1
+template <typename T>
+int launch_step_element(const void* ptrs, const int* dims,
+                        const double* coefs, int B, void* stream) {
+  return launch_step<T, kElementBody>(ptrs, dims, coefs, B, stream);
+}
+
+template <typename T>
+int launch_backtrack_element(const void* ptrs, const int* dims,
+                             const double* coefs, int B, int max_bt,
+                             void* stream) {
+  return launch_backtrack<T, kElementBody>(ptrs, dims, coefs, B, max_bt,
+                                           stream);
+}
+#if SPOCK_PART != 8
+template int launch_step_element<float>(const void*, const int*,
+                                        const double*, int, void*);
+template int launch_backtrack_element<float>(const void*, const int*,
+                                             const double*, int, int, void*);
+#endif
+#if SPOCK_PART != 4
+template int launch_step_element<double>(const void*, const int*,
+                                         const double*, int, void*);
+template int launch_backtrack_element<double>(const void*, const int*,
+                                              const double*, int, int,
+                                              void*);
+#endif
+#endif
 }  // namespace spock
 
 // C entry points, bound with ctypes.  ptrs: host array of device pointers
 // in the orders above; dims: host int array (sweep_common.cuh's Dim entries,
 // nseg, then nseg (kind, lo, hi) triples); coefs: host double array (gamma,
-// sigma, c1, sigma_k2, lam, lam_sp, and beta for the backtrack).  One
-// thread block per lane.  Return cudaGetLastError().
-#if SPOCK_PART != 8
+// sigma, c1, sigma_k2, lam, lam_sp, and beta for the backtrack); body: 1 for
+// the node instance, 0 for the element instance.  One thread block per
+// lane.  Return cudaGetLastError(), or cudaErrorInvalidValue for a request
+// the instance does not take.
+#if SPOCK_BODY != 0 && SPOCK_PART != 8
 extern "C" int sp_step_f32(const void* ptrs, const int* dims,
-                           const double* coefs, int B, void* stream) {
-  return spock::launch_step<float>(ptrs, dims, coefs, B, stream);
+                           const double* coefs, int body, int B,
+                           void* stream) {
+  return spock::launch_step_body<float>(ptrs, dims, coefs, body, B, stream);
 }
 
 extern "C" int sp_backtrack_f32(const void* ptrs, const int* dims,
-                                const double* coefs, int B,
+                                const double* coefs, int body, int B,
                                 int max_backtracks, void* stream) {
-  return spock::launch_backtrack<float>(ptrs, dims, coefs, B,
-                                         max_backtracks, stream);
+  return spock::launch_backtrack_body<float>(ptrs, dims, coefs, body, B,
+                                             max_backtracks, stream);
 }
 
-// The shared-memory plan (step_body.cuh's node_plan) into out[4], for
-// chip_smoke.py's report: dsize is 4 or 8.
+// The node instance's shared-memory plan (step_body.cuh's node_plan) into
+// out[4], for chip_smoke.py's report: dsize is 4 or 8.
 extern "C" int sp_step_plan(const int* dims, int dsize, int* out) {
   return dsize == 8 ? spock::node_plan<double>(dims, out)
                     : spock::node_plan<float>(dims, out);
 }
 #endif
 
-#if SPOCK_PART != 4
+#if SPOCK_BODY != 0 && SPOCK_PART != 4
 extern "C" int sp_step_f64(const void* ptrs, const int* dims,
-                           const double* coefs, int B, void* stream) {
-  return spock::launch_step<double>(ptrs, dims, coefs, B, stream);
+                           const double* coefs, int body, int B,
+                           void* stream) {
+  return spock::launch_step_body<double>(ptrs, dims, coefs, body, B, stream);
 }
 
 extern "C" int sp_backtrack_f64(const void* ptrs, const int* dims,
-                                const double* coefs, int B,
+                                const double* coefs, int body, int B,
                                 int max_backtracks, void* stream) {
-  return spock::launch_backtrack<double>(ptrs, dims, coefs, B,
-                                         max_backtracks, stream);
+  return spock::launch_backtrack_body<double>(ptrs, dims, coefs, body, B,
+                                              max_backtracks, stream);
 }
 #endif

@@ -1,9 +1,10 @@
 // The node-per-thread sweep body, laid out for Hopper: one Chambolle-Pock
 // sweep of one lane, with the metric image of its residual and, at a
-// candidate, of the direction, run by one 512-thread block.  The SuperMann
-// step kernels (sp_step.cu) and the CP sweep kernels (cp_sweep.cu, for
-// problems whose nx, nu and polytope rows are at most 32) run it; the metric
-// kernel (metric_apply.cu) runs its metric pass, metric_node, alone.  It
+// candidate, of the direction, run by one 512-thread block.  The node
+// instances of the SuperMann step kernels (sp_step.cu) and of the CP sweep
+// kernels (cp_sweep.cu) run it, for problems whose nx, nu, ny + 2 d and
+// polytope rows are at most 32 (node_fits); the metric kernel
+// (metric_apply.cu) runs its metric pass, metric_node, alone.  It
 // computes what sweep_body.cuh's sweep_lane computes (costs uniform or per
 // node; risk data uniform or per node; with or without polytope rows), in
 // fewer and cheaper passes:
@@ -95,11 +96,10 @@ struct StepSmem {
 };
 
 // Whether the node body takes geometry g: a node's columns fit in registers
-// (nx, nu and the polytope rows of a node; ny + 2 d is checked by
-// make_consts).
+// (nx, nu, the S2 projector's ny + 2 d and the polytope rows of a node).
 inline bool node_fits(const Geo& g) {
-  return g.nx <= kMaxDim && g.nu <= kMaxDim && g.nc <= kMaxDim &&
-         g.ncL <= kMaxDim;
+  return g.nx <= kMaxDim && g.nu <= kMaxDim && g.ny + 2 * g.d <= kMaxDim &&
+         g.nc <= kMaxDim && g.ncL <= kMaxDim;
 }
 
 // Plans the first region of a block's shared memory: the uniform cost

@@ -1,10 +1,11 @@
 // The element-per-thread body of one Chambolle-Pock sweep of one lane, run
 // by one 512-thread block: the device function behind cp_sweep.cu's kernels
-// (cp_sweep_fused, cp_sweep_metric_fused, candidate_sweep_fused) for the
-// problems the node body (step_body.cuh) does not take, those with nx, nu or
-// polytope rows above 32.  The node body runs every other problem.  This file
-// also holds what both bodies share: the sweep's constants, the clip and
-// cone helpers and the block reductions.
+// (cp_sweep_fused, cp_sweep_metric_fused, candidate_sweep_fused) and the
+// element instance of sp_step.cu's step kernels, for the problems the node
+// body (step_body.cuh) does not take: those with nx, nu, ny + 2 d or polytope
+// rows above 32.  The node body runs every other problem.  This file also
+// holds what both bodies share: the sweep's constants, the clip and cone
+// helpers and the block reductions.
 //
 // What sweep_lane computes for its lane, at (w, u) = (z, v) or, with
 // WITH_DIRECTION, at (w, u) = (z, v) + tau (dz, dv):
@@ -31,7 +32,9 @@
 // The intermediates live in device memory: the z-outputs first hold w1 and
 // are projected in place, the dual outputs hold the prox argument before the
 // cone projections, and four scratch arrays (allocated by the wrapper) hold
-// the costates and the feedforward terms.  Per-lane reductions are block
+// the costates and the feedforward terms.  The S2 projector's argument of a
+// non-leaf node (ny + 2 d values, of any size) is staged in the costate
+// scratch before the projection overwrites it in the outputs.  Per-lane reductions are block
 // reductions in shared memory, in a fixed order: no atomics, so the results
 // are deterministic.
 
@@ -43,7 +46,6 @@ namespace spock {
 
 constexpr int kThreads = 512;
 constexpr int kMaxSegments = 8;
-constexpr int kMaxKer = 32;  // ny + 2 d, the S2 projector's size
 
 // Kind codes of the dual-cone row segments (same as sweep_kernels.py).
 constexpr int kZero = 0;
@@ -84,7 +86,8 @@ struct SweepConsts {
   const T* nmR;
   const T* nmQN;
   // the element body's scratch
-  T* gq;      // [B, nx, n] costates
+  T* gq;      // [B, qstride]: costates [nx, n], first the S2 arguments
+  int64_t qstride;  // max(nx n, (ny + 2 d) n_nl)
   T* gw;      // [B, nu, mmax] u - sum_k B_k' q_k of one stage
   T* gdv;     // [B, nu, n_nl] feedforward terms
   T* ginner;  // [B, d nx, mmax] P_k B_k dvec + q_k of one stage
@@ -102,6 +105,14 @@ struct SweepRed {
 // The number of constant pointers make_consts reads before the scratch.
 constexpr int kConstPtrs = kLMatPtrs + 17;
 
+// The values of a lane's costate scratch gq in the element body: the
+// costates [nx, n], and before them the S2 arguments [ny + 2 d, n_nl].
+inline int64_t elem_qvalues(const Geo& g) {
+  const int64_t q = static_cast<int64_t>(g.nx) * g.n;
+  const int64_t ker = static_cast<int64_t>(g.ny + 2 * g.d) * g.n_nl;
+  return q > ker ? q : ker;
+}
+
 // Fills the constants from the host pointer array p (in the order sqrtQ,
 // sqrtR, sqrtQN, b, Gx, Gu, GxN, ker_proj, K, Rtinv, ABK, PB, B, x_min,
 // x_max, u_min, u_max, p_lo, p_hi, pN_lo, pN_hi, the node-minor sqrtQ,
@@ -113,10 +124,11 @@ bool make_consts(SweepConsts<T>& S, void* const* p, const int* dims,
                  double gamma, double sigma) {
   const int nseg = dims[kDims];
   if (nseg < 0 || nseg > kMaxSegments) return false;
-  if (!make_geo(S.g, dims) || S.g.ny + 2 * S.g.d > kMaxKer) return false;
+  if (!make_geo(S.g, dims)) return false;
   make_lmats(S.lm, p, S.g, dims);
   p += kLMatPtrs;
   const int mker = S.g.ny + 2 * S.g.d;
+  S.qstride = elem_qvalues(S.g);
   S.ker = static_cast<const T*>(p[0]);
   S.sker = dims[DIM_PN_RISK] ? mker * mker : 0;
   S.K = static_cast<const T*>(p[1]);
@@ -223,7 +235,7 @@ __device__ SweepRed<T> sweep_lane(const SweepConsts<T>& P, int64_t lane,
   const int tid = threadIdx.x;
   const T gamma = P.gamma;
   const T sigma = P.sigma;
-  T* gq = P.gq + lane * g.nx * g.n;
+  T* gq = P.gq + lane * P.qstride;
   T* gw = P.gw + lane * g.nu * g.mmax;
   T* gdv = P.gdv + lane * g.nu * g.n_nl;
   T* gin = P.ginner + lane * g.d * g.nx * g.mmax;
@@ -238,33 +250,31 @@ __device__ SweepRed<T> sweep_lane(const SweepConsts<T>& P, int64_t lane,
   });
   __syncthreads();
 
-  // ---- S2 projector per non-leaf node, in place; s_root shift; the leaf
-  // costates q = -x1 that start the backward sweep ----
+  // ---- S2 projector per non-leaf node, in place: the node's argument
+  // (y; s_children; tau_children), staged as column i of [mker, n_nl] in gq
+  // (every entry of it is the thread's own), then each row of the projector
+  // against it; s_root shift; the leaf costates q = -x1 that start the
+  // backward sweep ----
   const int mker = g.ny + 2 * g.d;
   for (int i = tid; i < n_nl; i += kThreads) {
     const int t = stage_of(g, i);
     const T* ker = P.ker + i * P.sker;
-    T vec[kMaxKer];
-    for (int k = 0; k < g.ny; ++k) vec[k] = o(PY, k * n_nl + i);
-    for (int k = 0; k < g.d; ++k) {
-      const int ch = child_of(g, i, t, k);
-      vec[g.ny + k] = o(PS, ch);
-      vec[g.ny + g.d + k] = o(PTAU, ch - 1);
-    }
-    T res[kMaxKer];
+    // entry a of the node's argument in the outputs
+    auto arg = [&](int a) -> T& {
+      if (a < g.ny) return o(PY, a * n_nl + i);
+      const bool s = a < g.ny + g.d;
+      const int ch = child_of(g, i, t, a - g.ny - (s ? 0 : g.d));
+      return s ? o(PS, ch) : o(PTAU, ch - 1);
+    };
+    for (int a = 0; a < mker; ++a) gq[a * n_nl + i] = arg(a);
     for (int a = 0; a < mker; ++a) {
       T acc = T(0);
-      for (int b = 0; b < mker; ++b) acc += ker[a * mker + b] * vec[b];
-      res[a] = acc;
-    }
-    for (int k = 0; k < g.ny; ++k) o(PY, k * n_nl + i) = res[k];
-    for (int k = 0; k < g.d; ++k) {
-      const int ch = child_of(g, i, t, k);
-      o(PS, ch) = res[g.ny + k];
-      o(PTAU, ch - 1) = res[g.ny + g.d + k];
+      for (int b = 0; b < mker; ++b) acc += ker[a * mker + b] * gq[b * n_nl + i];
+      arg(a) = acc;
     }
   }
   if (tid == 0) o(PS, 0) = o(PS, 0) - gamma;
+  __syncthreads();  // the S2 arguments in gq are done with
   for (int e = tid; e < nx * g.n_lf; e += kThreads) {
     const int idx = (e / g.n_lf) * n + n_nl + e % g.n_lf;
     gq[idx] = -o(PX, idx);

@@ -6,9 +6,10 @@ a shared library with a plain C interface, ``build/spock_tpu_torch/
 The hash covers the sources and the flags, so an edited source is rebuilt.
 The sources whose sweeps unroll into minutes of ``ptxas`` (``PARTS``) are
 compiled in parts at once, one nvcc per part (by value type, ``-DSPOCK_PART=4``
-for the float entries and ``8`` for the double ones, and for ``cp_sweep`` by
-``-DSPOCK_DIRECTION``: the node kernel with a direction apart), and then
-linked.
+for the float entries and ``8`` for the double ones, for ``cp_sweep`` by
+``-DSPOCK_DIRECTION``: the node kernel with a direction apart, and for
+``sp_step`` by ``-DSPOCK_BODY``: the element instances apart from the node
+ones), and then linked.
 A build runs on first use, never on import; ``start`` begins builds ahead of
 use.  A missing ``nvcc`` or a failed build raises.
 """
@@ -33,7 +34,8 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 PARTS = {
     "cp_sweep": tuple((f"-DSPOCK_PART={t}", f"-DSPOCK_DIRECTION={d}")
                       for t in (4, 8) for d in (0, 1)),
-    "sp_step": (("-DSPOCK_PART=4",), ("-DSPOCK_PART=8",)),
+    "sp_step": tuple((f"-DSPOCK_PART={t}", f"-DSPOCK_BODY={b}")
+                     for t in (4, 8) for b in (0, 1)),
 }
 
 _LIBS: dict = {}

@@ -24,7 +24,11 @@ device: the launch needs no host sync, so a CUDA graph can hold it.
 Pairs are the port's ``(Primal, Dual)`` with the 19 contiguous [B, rows,
 cols] blocks of ``sweep_kernels.pair_shapes`` (the two polytope blocks None
 when the problem has none).  The problem class is the JAX step kernels':
-that of the sweep kernels with uniform costs (``supported``).  The JAX
+that of the sweep kernels with uniform costs (``supported``).  Each kernel
+has two instances, one per sweep body, chosen by the problem's class
+(``step_body``, the rule of ``sweep_kernels.sweep_body``): the node body
+where nx, nu, ny + 2 d and the polytope rows of a node are at most 32 and
+its shared-memory plan fits, the element body otherwise.  The JAX
 kernel's W/Y/S lane packing exists only for the TPU's (8, 128) tiling and
 has no counterpart here: a pair is passed as it is, and the root input is
 ``z.u[:, :, 0]``.
@@ -34,7 +38,9 @@ slot numbers (``SC_*`` and ``OC_*``; the backtrack adds its trials in slot
 ``OC_TRIALS``).  The wrappers take their plain versions, ``sp_step_ref``
 and ``sp_backtrack_ref`` (a loop of the one-trial ``sp_retrial_ref``), only
 for tensors that lie on the CPU; for CUDA tensors they launch their kernel
-or raise.  ``LAUNCHES`` counts the kernel launches of each, and
+or raise.  ``LAUNCHES`` counts the kernel launches of each, and of
+csrc/sp_step.cu by body (``sp_step_node_body``, ``sp_step_element_body``:
+both wrappers' launches), and
 ``RETRIALS`` holds, per device, the lanes that backtracked and the trials
 they made, summed on the device (``retrials`` reads them).
 """
@@ -51,7 +57,8 @@ import torch
 from ..problem import ProblemData, ProblemMeta
 from . import _build, sweep_kernels
 
-LAUNCHES = {"sp_step_fused": 0, "sp_step_backtrack": 0}
+LAUNCHES = {"sp_step_fused": 0, "sp_step_backtrack": 0,
+            "sp_step_node_body": 0, "sp_step_element_body": 0}
 # device -> int64 [2]: the lanes that backtracked and the trials they made,
 # added to by the backtrack (on the card by its kernel, with atomics); made
 # once per device and zeroed in place (a CUDA graph holds its address)
@@ -75,9 +82,10 @@ N_KEEP = 8
 
 _ARGTYPES = {
     "sp_step": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_void_p],
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     "sp_backtrack": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                     ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+                     ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_void_p],
 }
 
 
@@ -131,14 +139,21 @@ class StepKeep:
 def supported(meta: ProblemMeta, data: ProblemData) -> bool:
     """The class of the JAX package's ``pallas_spstep.supported`` without its
     VMEM terms: the sweep kernels' class (per-node risk and polytope rows
-    included) with uniform costs, and nx, nu and the polytope rows of a node
-    at most 32, since the kernels hold a node's column in registers; other
-    problems take the sweep kernels instead."""
+    included, at any width) with uniform costs; problems with per-node costs
+    take the sweep kernels instead, as in the JAX package."""
     return (sweep_kernels.supported(meta, data)
             and all(a.shape[0] == 1 for a in (data.sqrtQ, data.sqrtR,
-                                              data.sqrtQN))
-            and max(meta.nx, meta.nu, meta.nc_nl, meta.nc_lf)
-            <= sweep_kernels.MAX_DIM)
+                                              data.sqrtQN)))
+
+
+def step_body(meta: ProblemMeta, data: ProblemData, dtype) -> str:
+    """The instance of csrc/sp_step.cu that runs the problem, by its class
+    (the rule of ``sweep_kernels.sweep_body``): ``"node"`` where the node
+    body's shared-memory plan fits, ``"element"`` otherwise.  Raises on a
+    problem outside the step kernels' class."""
+    if not supported(meta, data):
+        raise ValueError("step kernels: unsupported problem class")
+    return sweep_kernels.sweep_body(meta, data, dtype)
 
 
 def _decide(pair, zbar, d, wbar, tau, act, rn, nmz, nmv, r_safe, q_pow,
@@ -330,11 +345,17 @@ def _empty_pair(sizes, shapes, dtype, device) -> list:
             for a, s in zip(flat.split(sizes), shapes)]
 
 
-def _scratch(meta: ProblemMeta, k: int, dtype, device) -> list:
-    """The dvec and costate scratch of ``k`` blocks: [k, n_nl, ldu] and
-    [k, (n_lf + mmax) ldx] values, with ldx, ldu nx, nu rounded up to a
-    multiple of 4 (csrc/step_body.cuh's plan_smem); the costates are used
-    only when they do not fit in shared memory."""
+def _scratch(body: str, meta: ProblemMeta, k: int, dtype, device) -> tuple:
+    """The scratch of ``k`` blocks of the ``body`` instance: (the node
+    instance's dvec and costates, the element instance's four arrays of
+    ``sweep_kernels.element_scratch``), None for the other instance's.  The
+    node instance's are [k, n_nl, ldu] and [k, (n_lf + mmax) ldx] values,
+    with ldx, ldu nx, nu rounded up to a multiple of 4 (csrc/step_body.cuh's
+    plan_smem); its costates are used only when they do not fit in shared
+    memory."""
+    if body == sweep_kernels.ELEMENT:
+        return [None, None], sweep_kernels.element_scratch(meta, k, dtype,
+                                                           device)
     t = meta.tree
 
     def pad4(n):
@@ -342,13 +363,14 @@ def _scratch(meta: ProblemMeta, k: int, dtype, device) -> list:
 
     qsize = (t.n_leaf + t.stage_size(t.N - 2)) * pad4(meta.nx)
     return [torch.empty(k * n, dtype=dtype, device=device)
-            for n in (t.n_nonleaf * pad4(meta.nu), qsize)]
+            for n in (t.n_nonleaf * pad4(meta.nu), qsize)], [None] * 4
 
 
-def _launch(name, entry, dtype, device, ptr, data, meta, coefs, count,
+def _launch(name, entry, dtype, device, ptr, data, meta, coefs, body, count,
             *extra):
-    """Launch ``entry`` of csrc/sp_step.cu on ``count`` blocks (``extra``:
-    its int arguments after the count); raise on a CUDA error."""
+    """Launch the ``body`` instance of ``entry`` of csrc/sp_step.cu on
+    ``count`` blocks (``extra``: its int arguments after the count); raise
+    on a CUDA error."""
     ptrs = (ctypes.c_void_p * len(ptr))(*ptr)
     dims = sweep_kernels._dims(data, meta, True)
     cf = (ctypes.c_double * len(coefs))(*(float(c) for c in coefs))
@@ -358,15 +380,17 @@ def _launch(name, entry, dtype, device, ptr, data, meta, coefs, count,
     fn.restype = ctypes.c_int
     rc = sweep_kernels._call(fn, (ctypes.addressof(ptrs),
                                   ctypes.addressof(dims),
-                                  ctypes.addressof(cf), count, *extra),
+                                  ctypes.addressof(cf),
+                                  sweep_kernels.BODY_CODE[body], count,
+                                  *extra),
                              device)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    sweep_kernels.count(LAUNCHES, name)
+    sweep_kernels.count(LAUNCHES, name, f"sp_step_{body}_body")
 
 
 def smem_plan(data: ProblemData, meta: ProblemMeta, dtype) -> dict:
-    """The step kernels' dynamic shared memory per block for values of
+    """The node instance's dynamic shared memory per block for values of
     ``dtype``, from csrc/sp_step.cu's own planner (builds the library):
     {bytes, costates_in_shared_memory, riccati_groups}.  Raises if no
     layout fits."""
@@ -413,6 +437,7 @@ def sp_step_fused(data: ProblemData, meta: ProblemMeta, z, v, cache, r_prev,
         raise ValueError(f"{name} kernel: unsupported problem class")
     device, dtype, B, shapes, ins, consts = sweep_kernels._inputs(
         name, data, meta, z, v)
+    body = step_body(meta, data, dtype)
     ins += _check_pairs(name, pairs[1:], shapes, device, dtype)
     sweep_kernels._check(name, [x0, scal], [(B, meta.nx), (B, N_SC)], device,
                          dtype)
@@ -421,15 +446,14 @@ def sp_step_fused(data: ProblemData, meta: ProblemMeta, z, v, cache, r_prev,
     outs = [_empty_pair(sizes, shapes, dtype, device) for _ in range(8)]
     oscal = torch.empty((B, N_OC), dtype=dtype, device=device)
     kscal = torch.empty((B, N_KEEP), dtype=dtype, device=device)
-    scratch = _scratch(meta, B, dtype, device)
+    scratch, elem = _scratch(body, meta, B, dtype, device)
     ptr = ([sweep_kernels._ptr(a) for a in ins]
            + [sweep_kernels._ptr(a) for pair in outs for a in pair]
            + [x0.data_ptr(), scal.data_ptr(), oscal.data_ptr(),
               kscal.data_ptr()]
-           + [a.data_ptr() for a in scratch]
-           + [sweep_kernels._ptr(a) for a in consts] + [None] * 4)
+           + [sweep_kernels._ptr(a) for a in scratch + consts + elem])
     _launch(name, "sp_step", dtype, device, ptr, data, meta,
-            (gamma, sigma, c1, sigma_k2, lam, lam_sp), B)
+            (gamma, sigma, c1, sigma_k2, lam, lam_sp), body, B)
     res = tuple(sweep_kernels._pair(o) for o in outs)
     return (*res[:6], oscal, StepKeep(cache=cache, fresh=res[6], d=res[7],
                                       scal=kscal))
@@ -465,6 +489,7 @@ def sp_step_backtrack(data: ProblemData, meta: ProblemMeta, z, v,
         raise ValueError(f"{name} kernel: max_backtracks < 0")
     device, dtype, B, shapes, ins, consts = sweep_kernels._inputs(
         name, data, meta, z, v)
+    body = step_body(meta, data, dtype)
     ins += _check_pairs(name, [keep.cache, keep.fresh, keep.d, z_new, s],
                         shapes, device, dtype)
     sweep_kernels._check(name, [x0, scal, keep.scal, oscal],
@@ -473,15 +498,15 @@ def sp_step_backtrack(data: ProblemData, meta: ProblemMeta, z, v,
     sizes = [0 if a is None else math.prod(a) for a in shapes]
     wscratch = _empty_pair(sizes, shapes, dtype, device)
     out = torch.empty((B, N_OC), dtype=dtype, device=device)
-    scratch = _scratch(meta, B, dtype, device)
+    scratch, elem = _scratch(body, meta, B, dtype, device)
     counts = retrial_counts(device)
     ptr = ([sweep_kernels._ptr(a) for a in ins]
            + [sweep_kernels._ptr(a) for a in wscratch]
            + [x0.data_ptr(), scal.data_ptr(), keep.scal.data_ptr(),
               oscal.data_ptr(), out.data_ptr()]
-           + [a.data_ptr() for a in scratch] + [counts.data_ptr()]
-           + [sweep_kernels._ptr(a) for a in consts] + [None] * 4)
+           + [sweep_kernels._ptr(a) for a in scratch] + [counts.data_ptr()]
+           + [sweep_kernels._ptr(a) for a in consts + elem])
     _launch(name, "sp_backtrack", dtype, device, ptr, data, meta,
-            (gamma, sigma, c1, sigma_k2, lam, lam_sp, beta), B,
+            (gamma, sigma, c1, sigma_k2, lam, lam_sp, beta), body, B,
             max_backtracks)
     return out

@@ -21,11 +21,12 @@ their outputs once (126 MB per plain sweep at the headline size, 38 us at
 
 A sweep runs one of two bodies of ``csrc/cp_sweep.cu``, chosen here by the
 problem's class (``sweep_body``) and passed to the kernel: the node body of
-``csrc/step_body.cuh`` (a node per thread) when nx, nu and the polytope rows
-of a node are at most 32 and its shared-memory plan fits (``node_plan``,
-which mirrors the kernel's own), the element body of ``csrc/sweep_body.cuh``
-otherwise.  The node body reads per-node cost matrices from node-minor
-copies ([rows, cols, nodes]) that ``_consts`` makes once per problem.
+``csrc/step_body.cuh`` (a node per thread) when nx, nu, the S2 projector's
+ny + 2 d and the polytope rows of a node are at most 32 and its shared-memory
+plan fits (``node_plan``, which mirrors the kernel's own), the element body
+of ``csrc/sweep_body.cuh`` otherwise.  The node body reads per-node cost
+matrices from node-minor copies ([rows, cols, nodes]) that ``_consts`` makes
+once per problem.
 
 A pair is 19 blocks in the kernels' order (``BLOCKS``: the Primal fields,
 ``DUAL_BLOCKS``, then the polytope rows ``pnl`` and ``plf``); an absent
@@ -57,8 +58,7 @@ LAUNCHES = {"cp_sweep_fused": 0, "cp_sweep_metric_fused": 0,
             "metric_apply_node_body": 0, "metric_apply_element_body": 0}
 
 MAX_STAGES = 24  # kMaxStages of csrc/sweep_common.cuh
-MAX_KER = 32  # kMaxKer of csrc/sweep_body.cuh: ny + 2 d
-MAX_DIM = 32  # kMaxDim of csrc/step_body.cuh: nx, nu, polytope rows
+MAX_DIM = 32  # kMaxDim of csrc/step_body.cuh: nx, nu, ny + 2 d, polytope rows
 NODE, ELEMENT = "node", "element"
 BODY_CODE = {ELEMENT: 0, NODE: 1}  # the body codes of the C entries
 THREADS = 512  # kThreads of csrc/sweep_body.cuh
@@ -82,10 +82,14 @@ _CONSTS: dict = {}
 
 def supported(meta: ProblemMeta, data: ProblemData) -> bool:
     """The class of the JAX package's ``pallas_sweep.supported`` without its
-    VMEM terms: a polyhedral dual cone (here of at most 8 segments), risk
-    data (b, ker_proj) uniform or per non-leaf node, sqrtQ and sqrtR uniform
-    or per non-root node, sqrtQN uniform or per leaf, with or without
-    polytope rows; and a tree of at most 24 stages with ny + 2 d <= 32."""
+    VMEM terms: a polyhedral dual cone, risk data (b, ker_proj) uniform or
+    per non-leaf node, sqrtQ and sqrtR uniform or per non-root node, sqrtQN
+    uniform or per leaf, with or without polytope rows, at any nx, nu,
+    ny + 2 d and polytope rows (the element body takes what the node body
+    does not).  Two caps remain, both of the kernels' fixed-size constants:
+    at most 8 segments of the dual cone (``cuda_kernels.MAX_SEGMENTS``) and
+    at most 24 stages (``MAX_STAGES``: at d >= 2, 25 stages hold at least
+    2^25 - 1 nodes, which no JAX kernel fits in VMEM either)."""
     t = meta.tree
     return (all(k in cuda_kernels.KIND for k, _ in meta.dual_cone)
             and len(meta.dual_cone) <= cuda_kernels.MAX_SEGMENTS
@@ -94,7 +98,7 @@ def supported(meta: ProblemMeta, data: ProblemData) -> bool:
             and data.sqrtQ.shape[0] in (1, t.n - 1)
             and data.sqrtR.shape[0] in (1, t.n - 1)
             and data.sqrtQN.shape[0] in (1, t.n_leaf)
-            and t.N <= MAX_STAGES and meta.ny + 2 * t.d <= MAX_KER)
+            and t.N <= MAX_STAGES)
 
 
 def _pad4(n: int) -> int:
@@ -113,9 +117,11 @@ def _cost_mats(meta: ProblemMeta, data: ProblemData) -> list:
 
 
 def node_fits(meta: ProblemMeta) -> bool:
-    """The node body holds a node's columns in registers: nx, nu and the
-    polytope rows of a node are at most MAX_DIM."""
-    return max(meta.nx, meta.nu, meta.nc_nl, meta.nc_lf) <= MAX_DIM
+    """The node body holds a node's columns in registers: nx, nu, the S2
+    projector's ny + 2 d and the polytope rows of a node are at most
+    MAX_DIM (csrc/step_body.cuh's ``node_fits``)."""
+    return max(meta.nx, meta.nu, meta.ny + 2 * meta.tree.d, meta.nc_nl,
+               meta.nc_lf) <= MAX_DIM
 
 
 def metric_plan(meta: ProblemMeta, data: ProblemData, itemsize: int):
@@ -376,23 +382,30 @@ def _empty(shapes, dtype, device) -> list:
             for s in shapes]
 
 
+def element_scratch(meta: ProblemMeta, B: int, dtype, device) -> list:
+    """The element body's four scratch arrays of B lanes, in
+    csrc/sweep_body.cuh's order: the costates (whose room first holds the S2
+    projector's arguments: max(nx n, (ny + 2 d) n_nl) values a lane, its
+    ``elem_qvalues``), w, dvec and inner."""
+    t = meta.tree
+    mmax = t.stage_size(t.N - 2)
+    qvalues = max(meta.nx * t.n, (meta.ny + 2 * t.d) * t.n_nonleaf)
+    return [torch.empty((B, n), dtype=dtype, device=device)
+            for n in (qvalues, meta.nu * mmax, meta.nu * t.n_nonleaf,
+                      t.d * meta.nx * mmax)]
+
+
 def _scratch(body, meta, data, B, dtype, device) -> list:
     """The four scratch pointers of csrc/cp_sweep.cu for ``body``: the node
     body's dvec [B, n_nl, ldu] and, where they do not fit in shared memory,
-    costates [B, qsize]; the element body's costates, w, dvec and inner."""
-    t = meta.tree
-
-    def empty(n):
-        return torch.empty((B, n), dtype=dtype, device=device)
-
-    if body == NODE:
-        plan = node_plan(meta, data, torch.finfo(dtype).bits // 8)
-        costates = (None if plan["costates_in_shared_memory"]
-                    else empty(plan["costate_values"]))
-        return [empty(t.n_nonleaf * _pad4(meta.nu)), costates, None, None]
-    mmax = t.stage_size(t.N - 2)
-    return [empty(n) for n in (meta.nx * t.n, meta.nu * mmax,
-                               meta.nu * t.n_nonleaf, t.d * meta.nx * mmax)]
+    costates [B, qsize]; the element body's ``element_scratch``."""
+    if body == ELEMENT:
+        return element_scratch(meta, B, dtype, device)
+    plan = node_plan(meta, data, torch.finfo(dtype).bits // 8)
+    costates = (None if plan["costates_in_shared_memory"] else torch.empty(
+        (B, plan["costate_values"]), dtype=dtype, device=device))
+    return [torch.empty((B, meta.tree.n_nonleaf * _pad4(meta.nu)),
+                        dtype=dtype, device=device), costates, None, None]
 
 
 def _sweep(name, data, meta, z, v, gamma, sigma, x0, metric, direction=None):

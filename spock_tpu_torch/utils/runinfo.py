@@ -49,18 +49,22 @@ def environment(dev) -> dict:
 def path_flags(data, meta, opts=None) -> dict:
     """Which path a problem takes: the fused step (``use_fused_step``), the
     sweep kernels' class (``sweep_kernels.supported``), whether a node fits
-    the node body (``node_fits``) and the body the sweep kernels run."""
+    the node body (``node_fits``), the body the sweep kernels run and the
+    body the step kernels run (``spstep.step_body``; None off the fused
+    step)."""
     from ..algorithms import supermann as sp_alg
-    from ..ops import sweep_kernels
+    from ..ops import spstep, sweep_kernels
 
     opts = opts or sp_alg.SuperMannOpts()
     sweep = sweep_kernels.supported(meta, data)
+    fused = bool(sp_alg.use_fused_step(data, meta, opts))
     return dict(
-        use_fused_step=bool(sp_alg.use_fused_step(data, meta, opts)),
+        use_fused_step=fused,
         sweep_kernels_supported=bool(sweep),
         node_fits=bool(sweep_kernels.node_fits(meta)),
         sweep_body=(sweep_kernels.sweep_body(meta, data, data.dtype)
-                    if sweep else None))
+                    if sweep else None),
+        step_body=spstep.step_body(meta, data, data.dtype) if fused else None)
 
 
 def launches() -> dict:

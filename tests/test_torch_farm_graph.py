@@ -73,6 +73,35 @@ def test_graphed_farm_equals_eager_farm(dtype):
 
 
 @pytest.mark.cuda
+def test_graphed_farm_on_the_element_instance_equals_eager_farm():
+    """server_heat N=3 at nx = nu = 33 (above the node body's 32) at B = 4:
+    the farm runs the step kernels' element instance, whose scratch the
+    wrappers allocate inside the capture (from the graph's pool, so that a
+    replay finds the same buffers); in graphed chunks of 6 it is bitwise
+    the eager farm, every launch on the element instance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    data, meta = build(server_heat.make_spec(N=3, nx=33, d=2),
+                       dtype=torch.float32)
+    assert spstep.step_body(meta, data, torch.float32) == "element"
+    rng = np.random.default_rng(4)
+    x0 = torch.tensor(rng.uniform(-0.5, 0.5, (4, meta.nx)),
+                      dtype=torch.float32, device="cuda")
+    ws = torch.tensor(rng.integers(0, 2, (2, 4)), device="cuda")
+    mpc.clear_graphs()
+    ref = mpc.simulate_async(data, meta, x0, ws, TOL, n_steps=2)
+    before = dict(spstep.LAUNCHES)
+    got = mpc.simulate_async(data, meta, x0, ws, TOL, n_steps=2,
+                             iters_per_launch=6)
+    assert got.run["graphed"] and got.run["chunks"] >= 1
+    _same(got, ref)
+    added = {k: spstep.LAUNCHES[k] - before[k] for k in before}
+    assert added["sp_step_element_body"] == 2 * got.run["executed"]
+    assert added["sp_step_node_body"] == 0
+    mpc.clear_graphs()
+
+
+@pytest.mark.cuda
 def test_resumed_graphed_farm_equals_one_run():
     """A graphed farm stopped by its budget after 31 iterations (a graph of
     chunks of 6 from phase 0, then one eager iteration) and resumed from its

@@ -424,27 +424,38 @@ def test_step_wrapper_raises_on_per_node_costs(cpu_problem):
 
 
 def test_step_class_ends_at_32_states():
-    """The step kernels hold a node's column in registers: nx, nu and the
-    polytope rows of a node are at most 32.  Wider problems are in the sweep
-    kernels' class but not in the step kernels', so the SuperMann iteration
-    takes the per-sweep kernels, and a step call on tensors that are not on
-    the CPU raises."""
+    """The step kernels' class no longer ends at 32 states: it is the JAX
+    step kernels' (the sweep kernels' class with uniform costs).  nx = 32
+    takes the node instance; nx = 33 and ny + 2 d = 33 (d = 8 under AV@R)
+    are inside it on the element instance, so the SuperMann iteration takes
+    the fused step there, and a step call on tensors that are neither on the
+    CPU nor on a card raises without a launch.  Per-node costs stay outside
+    (``test_step_wrapper_raises_on_per_node_costs``)."""
     from spock_tpu_torch.algorithms import supermann as sp
 
-    for nx, inside in ((32, True), (33, False)):
-        data, meta = build(server_heat.make_spec(N=2, nx=nx, d=2),
+    for (nx, d), body in (((32, 2), "node"), ((33, 2), "element"),
+                          ((2, 8), "element")):
+        data, meta = build(server_heat.make_spec(N=2, nx=nx, d=d),
                            dtype=torch.float64, device="cpu")
         assert sweep_kernels.supported(meta, data)
-        assert spstep.supported(meta, data) == inside
-        assert sp.use_fused_step(data, meta, sp.SuperMannOpts()) == inside
+        assert spstep.supported(meta, data)
+        assert sp.use_fused_step(data, meta, sp.SuperMannOpts())
+        for dtype in (torch.float32, torch.float64):
+            assert spstep.step_body(meta, data, dtype) == body
+            assert sweep_kernels.sweep_body(meta, data, dtype) == body
     pairs = [_meta_pair(meta, 2, torch.float64) for _ in range(8)]
     x0 = torch.empty((2, meta.nx), dtype=torch.float64, device="meta")
     scal = torch.empty((2, spstep.N_SC), dtype=torch.float64, device="meta")
     before = dict(spstep.LAUNCHES)
-    with pytest.raises(ValueError, match="sp_step_fused kernel: unsupported"):
+    with pytest.raises(ValueError, match="sp_step_fused kernel: tensors on "
+                       "meta"):
         spstep.sp_step_fused(data, meta, *pairs[0], *pairs[1:], x0, scal, 0.2,
                              0.3, c1=0.99, sigma_k2=0.1, lam=1.0, lam_sp=1.0)
     assert spstep.LAUNCHES == before
+    pncost = _per_node_costs(data, meta)
+    assert not spstep.supported(meta, pncost)
+    with pytest.raises(ValueError, match="unsupported problem class"):
+        spstep.step_body(meta, pncost, torch.float64)
 
 
 def test_retrial_wrapper_raises_on_per_node_costs(cpu_problem):
@@ -687,6 +698,22 @@ def test_widened_step_kernel_matches_plain_version_on_the_card(dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     _step_check(*build(_wide_spec(per_node_costs=False), dtype=dtype), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nx, d", [(33, 2), (2, 8)])
+def test_element_step_kernel_matches_plain_version_on_the_card(nx, d, dtype):
+    """The step and backtrack kernels' element instance (nx = 33, and
+    ny + 2 d = 33 at d = 8) against their plain versions, with the
+    tolerances of the uniform test above; both launches go to it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    data, meta = build(server_heat.make_spec(N=3, nx=nx, d=d), dtype=dtype)
+    assert spstep.step_body(meta, data, dtype) == "element"
+    before = spstep.LAUNCHES["sp_step_element_body"]
+    _step_check(data, meta, dtype)
+    assert spstep.LAUNCHES["sp_step_element_body"] == before + 2
 
 
 @pytest.mark.cuda

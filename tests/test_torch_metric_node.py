@@ -50,8 +50,9 @@ def test_headline_configurations_take_the_node_body(headline_specs, config,
 
 @pytest.mark.parametrize("nx, body", [(32, NODE), (33, ELEMENT)])
 def test_wider_problems_take_the_element_body(nx, body):
-    """The node body holds a node's columns in registers: nx, nu and the
-    polytope rows of a node are at most 32, as for the sweep kernels."""
+    """The node body holds a node's columns in registers: nx, nu, ny + 2 d
+    and the polytope rows of a node are at most 32, as for the sweep
+    kernels."""
     data, meta = build(server_heat.make_spec(N=2, nx=nx, d=2),
                        dtype=torch.float64, device="cpu")
     for dtype in (torch.float32, torch.float64):
@@ -63,6 +64,20 @@ def test_wider_problems_take_the_element_body(nx, body):
         wide = dataclasses.replace(small_meta, **{rows: nx})
         assert (sweep_kernels.metric_plan(wide, small, 8) is None) == (
             body == ELEMENT)
+
+
+@pytest.mark.parametrize("d, body", [(7, NODE), (8, ELEMENT)])
+def test_risk_projector_above_32_takes_the_element_body(d, body):
+    """ny + 2 d = 4 d + 1 under AV@R passes 32 at d = 8: the metric kernel
+    then takes the element body, by the sweep kernels' rule."""
+    data, meta = build(server_heat.make_spec(N=2, nx=2, d=d),
+                       dtype=torch.float64, device="cpu")
+    assert meta.ny + 2 * d == 4 * d + 1
+    for dtype in (torch.float32, torch.float64):
+        assert sweep_kernels.metric_body(meta, data, dtype) == body
+        assert sweep_kernels.sweep_body(meta, data, dtype) == body
+    assert (sweep_kernels.metric_plan(meta, data, 8) is None) == (
+        body == ELEMENT)
 
 
 def test_body_choice_raises_on_an_unsupported_class():

@@ -83,9 +83,9 @@ def test_node_body_keeps_costates_in_device_memory_where_they_do_not_fit():
 
 @pytest.mark.parametrize("nx, body", [(32, "node"), (33, "element")])
 def test_wider_problems_take_the_element_body(nx, body):
-    """The node body holds a node's columns in registers: nx, nu and the
-    polytope rows of a node are at most 32; wider problems in the sweep
-    kernels' class take the element body."""
+    """The node body holds a node's columns in registers: nx, nu, ny + 2 d
+    and the polytope rows of a node are at most 32; wider problems in the
+    sweep kernels' class take the element body."""
     data, meta = build(server_heat.make_spec(N=2, nx=nx, d=2),
                        dtype=torch.float64, device="cpu")
     assert sweep_kernels.supported(meta, data)
@@ -100,6 +100,31 @@ def test_wider_problems_take_the_element_body(nx, body):
         wide = dataclasses.replace(small_meta, **{rows: nx})
         assert (sweep_kernels.node_plan(wide, small, 8) is None) == (
             body == "element")
+
+
+@pytest.mark.parametrize("d, body", [(7, "node"), (8, "element")])
+def test_risk_projector_above_32_takes_the_element_body(d, body):
+    """Under AV@R ny = 2 d + 1, so the S2 projector's ny + 2 d = 4 d + 1
+    passes 32 at d = 8: such a problem is in the sweep kernels' class (no
+    cap on ny + 2 d) and takes the element body, whose costate scratch
+    first holds the projector's arguments, [ny + 2 d, n_nl] a lane."""
+    data, meta = build(server_heat.make_spec(N=2, nx=2, d=d),
+                       dtype=torch.float64, device="cpu")
+    mker = meta.ny + 2 * d
+    assert mker == 4 * d + 1 and sweep_kernels.supported(meta, data)
+    assert sweep_kernels.node_fits(meta) == (body == "node")
+    for dtype in (torch.float32, torch.float64):
+        assert sweep_kernels.sweep_body(meta, data, dtype) == body
+    assert (sweep_kernels.node_plan(meta, data, 8) is None) == (
+        body == "element")
+    scratch = sweep_kernels._scratch("element", meta, data, 2, torch.float64,
+                                     "cpu")
+    t = meta.tree
+    assert tuple(scratch[0].shape) == (2, max(meta.nx * t.n,
+                                              mker * t.n_nonleaf))
+    # N = 2: one non-leaf node, the widest non-leaf stage of one node
+    assert [tuple(a.shape) for a in scratch[1:]] == [
+        (2, meta.nu), (2, meta.nu), (2, d * meta.nx)]
 
 
 def test_body_choice_raises_on_an_unsupported_class():
