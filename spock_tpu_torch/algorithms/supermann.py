@@ -46,6 +46,7 @@ import torch
 
 from ..ops import spstep, sweep_kernels
 from ..problem import ProblemData, ProblemMeta, step_size
+from ..utils import profiling
 from ..zv import Dual, Primal, leaves, lincomb, sub, tmap
 from . import anderson, broyden
 from .common import (
@@ -624,8 +625,13 @@ def run_supermann(data: ProblemData, meta: ProblemMeta, x0, z0: Primal,
         bodies = [sp_body(data, meta, tol, opts, gamma=gamma, sigma=sigma,
                           fused_sweep=fused_sweep, record=record,
                           constrain=constrain)]
-    while c.it < max_iter and not bool(c.done.all()):
-        c = bodies[c.it % len(bodies)](c)
+    while c.it < max_iter:
+        with profiling.span("spock.sp.sync"):
+            done = bool(c.done.all())
+        if done:
+            break
+        with profiling.span("spock.sp.iter"):
+            c = bodies[c.it % len(bodies)](c)
     return SolveResult(
         z=c.z,
         v=c.v,

@@ -46,6 +46,14 @@
 // All reductions are fixed-order block reductions: launches are
 // deterministic.
 //
+// Both kernels carry the phase clock (sweep_body.cuh's PhaseClock): where
+// word 2 of the device counter is set (ops/spstep.py's set_phase_timing),
+// thread 0 of a block adds the clock64() cycles of each part of its work
+// (the five parts of every sweep it runs, phase 2, each commit, and its
+// whole run) to the counter's words 3, 4, ... (spstep.PHASES).  It adds no
+// barrier and changes no value; a backtrack block whose lane does not loop
+// exits before it.
+//
 // What bounds it: memory.  A lane reads 8 pairs (z, cache, r_prev, s_prev
 // and the four Anderson rows) and writes 6 (z_new, w, r, s, y, p); at the
 // headline size (B = 128 lanes of server_heat N=10 nx=nu=20 d=2, float32,
@@ -148,6 +156,8 @@ struct StepParams {
   T* keep;        // [B, kKeep]
   T* gdv;         // node scratch [B, n_nl ldu]
   T* qg;          // node scratch [B, qsize] (costates outside shared memory)
+  unsigned long long* count;  // the counter: [2] the phase clock's flag,
+                              // [3, 3 + kSlots) its cycles (added to)
   T c1, sigma_k2, lam, lam_sp;
 };
 
@@ -164,7 +174,8 @@ struct BacktrackParams {
   T* oscal;                    // [B, kScOut]
   T* gdv;                      // node scratch [B, n_nl ldu]
   T* qg;                       // node scratch [B, qsize]
-  unsigned long long* count;   // [2]: lanes looped, trials made (added to)
+  unsigned long long* count;   // the counter: [0, 2) lanes looped, trials
+                               // made; the phase clock's as for StepParams
   T c1, sigma_k2, lam, lam_sp, beta;
   int max_bt;
 };
@@ -224,14 +235,17 @@ __device__ __forceinline__ SweepRed<T> lane_sweep(
   const Geo& g = P.x.k.g;
   const T* x0 = P.x0 + lane * g.nx;
   if constexpr (BODY == kNodeBody) {
-    return step_sweep<T, DIR>(P.x, zl, dl, tau, ol, nullptr, true,
-                              P.gdv + lane * g.n_nl * P.x.s.ldu,
-                              P.qg + lane * P.x.s.qsize, x0, sm);
+    return step_sweep<T, DIR, PhaseClock>(
+        P.x, zl, dl, tau, ol, nullptr, true,
+        P.gdv + lane * g.n_nl * P.x.s.ldu, P.qg + lane * P.x.s.qsize, x0,
+        sm);
   } else {
     __syncthreads();
+    PhaseClock::lap_pending();
     const Cand<T, DIR> c{Ref<T>{&z, &g, lane}, Ref<T>{&d, &g, lane}, tau};
     const Ref<T> out{&o, &g, lane};
-    return sweep_lane<T, true, DIR>(P.x.k, lane, c, out, nullptr, x0, sm);
+    return sweep_lane<T, true, DIR, PhaseClock>(P.x.k, lane, c, out,
+                                                nullptr, x0, sm);
   }
 }
 
@@ -324,6 +338,7 @@ template <typename T, int BODY>
 __global__ void __launch_bounds__(kThreads)
 sp_step_kernel(const __grid_constant__ StepParams<T> P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  PhaseClock::begin(P.count);
   T* sm = reinterpret_cast<T*>(smem_raw);
   __shared__ Lane<T> lz, lzb, lrp, lsp, la1r, la2r, la1p, la2p;
   __shared__ Lane<T> lzn, lw, lr, ls, ly, lp, lf, ld;
@@ -355,6 +370,7 @@ sp_step_kernel(const __grid_constant__ StepParams<T> P) {
   make_lane(ld, P.d, lane, g);
   if constexpr (BODY == kNodeBody) stage_consts(P.x, sm);
   __syncthreads();
+  PhaseClock::lap(kSlotNone);
 
   // ---- phase 1: the fresh sweep, skipped by a lane with a valid cache ----
   SweepRed<T> fresh{T(0), T(0), T(0), T(0), T(0), T(0)};
@@ -401,6 +417,7 @@ sp_step_kernel(const __grid_constant__ StepParams<T> P) {
            });
   }
   block_reduce(acc, 9, sm + P.x.s.work);
+  PhaseClock::lap(kSlotAnderson);
 
   // regularised closed-form 3x3 solve (anderson._solve3), rows of age 1 and
   // 2 masked by their validity; every thread computes the same gammas
@@ -457,6 +474,7 @@ sp_step_kernel(const __grid_constant__ StepParams<T> P) {
   }
 
   // ---- phase 3: the candidate sweep at (z, v) + tau d into w ----
+  PhaseClock::pend(kSlotAnderson);
   const SweepRed<T> cand =
       lane_sweep<T, BODY, true>(P, lane, P.z, lz, P.d, ld, tau, P.w, lw, sm);
 
@@ -478,6 +496,8 @@ sp_step_kernel(const __grid_constant__ StepParams<T> P) {
     kp[KP_CACHED] = cached ? T(1) : T(0);
     kp[kKeep - 1] = T(0);
   }
+  PhaseClock::lap(kSlotCommit);
+  PhaseClock::end(P.count);
 }
 
 template <typename T, int BODY>
@@ -496,6 +516,7 @@ sp_backtrack_kernel(const __grid_constant__ BacktrackParams<T> P) {
     if (tid < kScOut) out[tid] = o1[tid];
     return;
   }
+  PhaseClock::begin(P.count);
   const T* sc = P.scal + lane * kScIn;
   const T* kp = P.keep + lane * kKeep;
   const bool cached = kp[KP_CACHED] > T(0);
@@ -507,6 +528,7 @@ sp_backtrack_kernel(const __grid_constant__ BacktrackParams<T> P) {
   make_lane(ls, P.s, lane, g);
   if constexpr (BODY == kNodeBody) stage_consts(P.x, sm);
   __syncthreads();
+  PhaseClock::lap(kSlotNone);
 
   T tau = T(1);
   int trials = 0;
@@ -525,19 +547,24 @@ sp_backtrack_kernel(const __grid_constant__ BacktrackParams<T> P) {
     // the choice was written before commit's barrier: every thread reads
     // the same
     if (choice[0] != T(0) || choice[1] != T(0)) break;
+    // the next trial's sweep opens with the end of this commit
+    PhaseClock::pend(kSlotCommit);
   }
   if (tid == 0) {
     out[kOcTrials] = static_cast<T>(trials);
     atomicAdd(P.count, 1ull);
     atomicAdd(P.count + 1, static_cast<unsigned long long>(trials));
   }
+  PhaseClock::lap(kSlotCommit);
+  PhaseClock::end(P.count);
 }
 
 // The constants of a launch from the host pointers p (make_consts's order,
 // the element body's four scratch pointers included), dims and coefs (gamma,
 // sigma, c1, sigma_k2, lam, lam_sp); false on a problem outside the
 // instance's class, a layout that does not fit or missing scratch.  The
-// element instance's dynamic shared memory is the reduction scratch.
+// dynamic shared memory ends with the phase clock's words; before them the
+// element instance's is the reduction scratch.
 template <typename T, int BODY, class Params>
 bool make_params(Params& P, void* const* p, const int* dims,
                  const double* coefs) {
@@ -546,7 +573,8 @@ bool make_params(Params& P, void* const* p, const int* dims,
   if (dims[DIM_PN_Q] || dims[DIM_PN_R] || dims[DIM_PN_QN]) return false;
   if constexpr (BODY == kNodeBody) {
     if (!node_fits(g) ||
-        !plan_smem(P.x.s, g, dims, static_cast<int>(sizeof(T))) ||
+        !plan_smem(P.x.s, g, dims, static_cast<int>(sizeof(T)),
+                   kClockBytes) ||
         !P.gdv || !P.qg) {
       return false;
     }
@@ -554,7 +582,8 @@ bool make_params(Params& P, void* const* p, const int* dims,
     const SweepConsts<T>& k = P.x.k;
     if (!k.gq || !k.gw || !k.gdv || !k.ginner) return false;
     P.x.s = StepSmem{};
-    P.x.s.bytes = kMaxRed * kThreads * static_cast<int>(sizeof(T));
+    P.x.s.bytes =
+        kClockBytes + kMaxRed * kThreads * static_cast<int>(sizeof(T));
   }
   P.c1 = static_cast<T>(coefs[2]);
   P.sigma_k2 = static_cast<T>(coefs[3]);
@@ -582,7 +611,9 @@ void set_pairs(Pair<T>* const* pairs, int count, void* const* p) {
 //   304 x0  305 scalar pack [B, 10]  306 output scalars [B, 16]
 //   307 kept scalars [B, 8]  308 dvec scratch  309 costate scratch (the
 //               node instance's; null for the element instance)
-//   [310, 338)  the sweep's constants, in make_consts's order, then its four
+//   310 the counter (int64 [3 + kSlots]: its phase clock's flag read, its
+//               cycles added to)
+//   [311, 339)  the sweep's constants, in make_consts's order, then its four
 //               scratch pointers (the element instance's; null for the node
 //               instance)
 constexpr int kStepPairs = kInPairs + kOutPairs + 2;
@@ -596,7 +627,8 @@ int launch_step(const void* ptrs, const int* dims, const double* coefs,
   constexpr int base = kStepPairs * kPairBlocks;
   P.gdv = static_cast<T*>(p[base + 4]);
   P.qg = static_cast<T*>(p[base + 5]);
-  if (!make_params<T, BODY>(P, p + base + 6, dims, coefs)) {
+  P.count = static_cast<unsigned long long*>(p[base + 6]);
+  if (!make_params<T, BODY>(P, p + base + 7, dims, coefs)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Pair<T>* const pairs[] = {&P.z,  &P.cache, &P.rp, &P.sp, &P.a1r, &P.a2r,
@@ -618,7 +650,8 @@ int launch_step(const void* ptrs, const int* dims, const double* coefs,
 //   136 the tau = 1 launch's output scalars [B, 16]
 //   137 output scalars [B, 16]  138 dvec scratch  139 costate scratch (the
 //               node instance's)
-//   140 counts [2] (int64: lanes looped, trials made; added to)
+//   140 the counter (int64 [3 + kSlots]: lanes looped and trials made added
+//               to; the phase clock's as for sp_step)
 //   [141, 169)  the sweep's constants and its scratch, as for sp_step
 // coefs: as for sp_step, then beta.
 constexpr int kBacktrackPairs = 7;
@@ -731,11 +764,12 @@ extern "C" int sp_backtrack_f32(const void* ptrs, const int* dims,
                                              max_backtracks, stream);
 }
 
-// The node instance's shared-memory plan (step_body.cuh's node_plan) into
-// out[4], for chip_smoke.py's report: dsize is 4 or 8.
+// The node instance's shared-memory plan (step_body.cuh's node_plan, with
+// the phase clock's words) into out[4], for chip_smoke.py's report: dsize
+// is 4 or 8.
 extern "C" int sp_step_plan(const int* dims, int dsize, int* out) {
-  return dsize == 8 ? spock::node_plan<double>(dims, out)
-                    : spock::node_plan<float>(dims, out);
+  return dsize == 8 ? spock::node_plan<double>(dims, out, spock::kClockBytes)
+                    : spock::node_plan<float>(dims, out, spock::kClockBytes);
 }
 #endif
 

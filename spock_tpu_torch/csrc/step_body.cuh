@@ -138,9 +138,10 @@ inline bool metric_plan(StepSmem& s, const Geo& g, const int* dims,
 
 // Plans the shared memory of a block for geometry g, the per-node flags of
 // dims (uniform matrices are staged, per-node ones are not) and values of
-// ``vsize`` bytes; returns false if no layout fits.
+// ``vsize`` bytes, with ``tail`` bytes more at the end (the step kernels'
+// phase clock); returns false if no layout fits.
 inline bool plan_smem(StepSmem& s, const Geo& g, const int* dims,
-                      int vsize) {
+                      int vsize, int tail = 0) {
   const int mker = g.ny + 2 * g.d, ldk = pad4(mker);
   const bool ker = dims[DIM_PN_RISK] == 0;
   s.ldk = ldk;
@@ -178,11 +179,11 @@ inline bool plan_smem(StepSmem& s, const Geo& g, const int* dims,
     for (int cmax = kMaxGroups; cmax >= (q_shared ? 16 : 1); cmax /= 2) {
       const int work = q_shared && s.qsize > red ? s.qsize : red;
       const long total = o + static_cast<long>(cmax) * s.xch_node + work;
-      if (total * vsize <= kSmemLimit) {
+      if (total * vsize + tail <= kSmemLimit) {
         s.cmax = cmax;
         s.work = o + cmax * s.xch_node;
         s.q_shared = q_shared;
-        s.bytes = static_cast<int>(total * vsize);
+        s.bytes = static_cast<int>(total * vsize + tail);
         return true;
       }
     }
@@ -814,8 +815,9 @@ constexpr int kGroupRows = kMaxDim / 4;
 // memory; x0: its root state; sm: the block's dynamic shared memory, with
 // stage_consts done.  Starts and ends with a barrier.  Not inlined: the
 // kernels of a source share one copy of each sweep, which keeps the build
-// short.
-template <typename T, bool DIR>
+// short.  ``Clk`` times its parts (PhaseClock in the step kernels; the
+// opening barrier closes the caller's pending part).
+template <typename T, bool DIR, class Clk = NoClock>
 __device__ __noinline__ SweepRed<T> step_sweep(
     const StepConsts<T>& X, const Lane<T>& zl, const Lane<T>& dl, T tau,
     const Lane<T>& ol, const Lane<T>* mr, bool metric, T* gdv, T* qg,
@@ -833,6 +835,7 @@ __device__ __noinline__ SweepRed<T> step_sweep(
   T* const* o = ol.p;
   T* qbuf = s.q_shared ? sm + s.work : qg;
   __syncthreads();
+  Clk::lap_pending();
 
   // ---- w1 = c - gamma L' c_v, the S2 projector, s_root - gamma and the
   // leaf costates -x1, one thread per node ----
@@ -933,6 +936,9 @@ __device__ __noinline__ SweepRed<T> step_sweep(
     const T* ABK = X.k.ABK + st * d * nx * nx;
     const T* PB = X.k.PB + st * d * nx * nu;
     __syncthreads();  // the previous stage is done with the stage matrices
+    // the part before: the first stage's is w1 and S2, a later one's the
+    // stage before it
+    Clk::lap(st == g.N - 2 ? kSlotLprimeS2 : kSlotBackward);
     for (int e = tid; e < nu * ldu; e += kThreads) {
       const int r = e / ldu, q = e % ldu;
       sm[s.Rti + e] = q < nu ? Rti[r * nu + q] : T(0);
@@ -1038,6 +1044,7 @@ __device__ __noinline__ SweepRed<T> step_sweep(
   // ---- S1 forward rollout from x0: u = K x + dvec, x_child = ABK_k x +
   // B_k dvec, the stage's states in the costate buffer ----
   __syncthreads();  // the backward sweep is done with the buffers
+  Clk::lap(kSlotBackward);
   {
     T* x0b = qbuf + qhalf_of(g, s, 0);
     for (int r = tid; r < ldx; r += kThreads) {
@@ -1107,6 +1114,7 @@ __device__ __noinline__ SweepRed<T> step_sweep(
     }
   }
   __syncthreads();
+  Clk::lap(kSlotForward);
 
   // ---- ubar = prox_h*(c_v + sigma L (2 wbar - c_z)), one thread per node:
   // the prox argument, projected where it is formed ----
@@ -1266,6 +1274,7 @@ __device__ __noinline__ SweepRed<T> step_sweep(
     }
   }
   __syncthreads();
+  Clk::lap(kSlotProx);
   SweepRed<T> out{T(0), T(0), T(0), T(0), T(0), T(0)};
   if (!DIR && !metric) return out;
 
@@ -1293,6 +1302,7 @@ __device__ __noinline__ SweepRed<T> step_sweep(
     out.nz = v[1];
     out.nv = v[2];
   }
+  Clk::lap(kSlotMetric);
   return out;
 }
 
@@ -1310,17 +1320,17 @@ int launch_kernel(K kernel, const Params& P, int grid, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The node body's shared-memory plan for dims and values of T, into out[4]:
-// {bytes, costates in shared memory, Riccati groups, costate values per
-// lane}; -1 entries and an error when the problem is outside the body's
-// class or no layout fits.
+// The node body's shared-memory plan for dims and values of T with
+// ``tail`` bytes more (plan_smem's), into out[4]: {bytes, costates in
+// shared memory, Riccati groups, costate values per lane}; -1 entries and an
+// error when the problem is outside the body's class or no layout fits.
 template <typename T>
-int node_plan(const int* dims, int* out) {
+int node_plan(const int* dims, int* out, int tail = 0) {
   SweepConsts<T> k;
   void* none[kConstPtrs + 4] = {};
   StepSmem s;
   if (!make_consts(k, none, dims, 1.0, 1.0) || !node_fits(k.g) ||
-      !plan_smem(s, k.g, dims, static_cast<int>(sizeof(T)))) {
+      !plan_smem(s, k.g, dims, static_cast<int>(sizeof(T)), tail)) {
     out[0] = out[1] = out[2] = out[3] = -1;
     return static_cast<int>(cudaErrorInvalidValue);
   }

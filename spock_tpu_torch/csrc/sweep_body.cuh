@@ -221,11 +221,104 @@ __device__ T block_max(T v, T* sh) {
   return out;
 }
 
+// The cycle slots of the step kernels' phase clock (ops/spstep.py's
+// PHASES): the five parts of a sweep, the step's phase 2 and its commits,
+// and a block's whole run.
+enum PhaseSlot {
+  kSlotLprimeS2,   // w1 = w - gamma L' u, the S2 projector, s_root
+  kSlotBackward,   // the S1 backward sweep
+  kSlotForward,    // the S1 forward rollout
+  kSlotProx,       // ubar = prox_h*(u + sigma L (2 wbar - w))
+  kSlotMetric,     // M r, M d and their block reductions
+  kSlotAnderson,   // phase 2: residual, Anderson rows, direction
+  kSlotCommit,     // phase 4 and each retrial's commit
+  kSlotTotal,      // a block's first statement to its last
+  kSlots,
+  kSlotNone = kSlots  // a part no slot takes (set-up)
+};
+// Bytes of the clock's words at the end of the dynamic shared memory of a
+// step kernel's block (its plan leaves them after its own values).
+constexpr int kClockBytes = 96;
+
+// The phase clock of the step kernels: where the counter's flag is on,
+// thread 0 of a block reads clock64() right after the barrier that closes
+// each part of the block's work and adds the cycles since its last reading
+// to that part's slot; at the block's end it adds the slots to the counter.
+// The words live in the block's dynamic shared memory, touched by thread 0
+// alone: no barrier, and no 64-bit value held in registers across parts.
+// Timing changes no value the block computes.  Every method is a no-op in
+// other threads and while the flag is off.
+struct PhaseClock {
+  // words: the flag, the block's first reading, the last reading, the slot
+  // of the part that the next sweep's opening barrier closes, the slots
+  enum { kOn, kStart, kLast, kPending, kFirst, kWords = kFirst + kSlots };
+  static_assert(kWords * 8 <= kClockBytes, "phase clock words");
+
+  static __device__ __forceinline__ unsigned long long* words() {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    unsigned bytes;
+    asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(bytes));
+    return reinterpret_cast<unsigned long long*>(smem_raw + bytes -
+                                                 kClockBytes);
+  }
+  static __device__ __forceinline__ unsigned long long now() {
+    return static_cast<unsigned long long>(clock64());
+  }
+  // At the block's first statement: reads the flag of the counter (its
+  // word 2).
+  static __device__ __forceinline__ void begin(
+      const unsigned long long* count) {
+    if (threadIdx.x != 0) return;
+    unsigned long long* w = words();
+    w[kOn] = count[2];
+    if (!w[kOn]) return;
+    for (int k = 0; k < kSlots; ++k) w[kFirst + k] = 0;
+    w[kPending] = kSlotNone;
+    w[kStart] = w[kLast] = now();
+  }
+  // The part that ends here goes to ``slot`` (none for kSlotNone).
+  static __device__ __forceinline__ void lap(int slot) {
+    if (threadIdx.x != 0) return;
+    unsigned long long* w = words();
+    if (!w[kOn]) return;
+    const unsigned long long t = now();
+    if (slot < kSlots) w[kFirst + slot] += t - w[kLast];
+    w[kLast] = t;
+  }
+  // The slot of the part that the next sweep's opening barrier closes.
+  static __device__ __forceinline__ void pend(int slot) {
+    if (threadIdx.x == 0) words()[kPending] = slot;
+  }
+  static __device__ __forceinline__ void lap_pending() {
+    if (threadIdx.x == 0 && words()[kOn]) {
+      lap(static_cast<int>(words()[kPending]));
+    }
+  }
+  // At the block's last statement: the block's total, then every slot
+  // added to the counter's words 3, 4, ...
+  static __device__ __forceinline__ void end(unsigned long long* count) {
+    if (threadIdx.x != 0) return;
+    unsigned long long* w = words();
+    if (!w[kOn]) return;
+    w[kFirst + kSlotTotal] = now() - w[kStart];
+    for (int k = 0; k < kSlots; ++k) atomicAdd(count + 3 + k, w[kFirst + k]);
+  }
+};
+
+// The clock of the sweeps that other kernels run: every method compiles
+// to nothing.
+struct NoClock {
+  static __device__ __forceinline__ void lap(int) {}
+  static __device__ __forceinline__ void lap_pending() {}
+};
+
 // One sweep of lane ``lane``, read through ``c``, into the output pair ``o``;
 // M r goes to ``mr`` unless it is null.  ``x0`` is the lane's [nx] root
 // state, ``sh`` kThreads values of shared memory.  Ends with a barrier when
-// WITH_METRIC; without it the caller syncs before reading ``o``.
-template <typename T, bool WITH_METRIC, bool WITH_DIRECTION>
+// WITH_METRIC; without it the caller syncs before reading ``o``.  ``Clk``
+// times its parts (PhaseClock in the step kernels).
+template <typename T, bool WITH_METRIC, bool WITH_DIRECTION,
+          class Clk = NoClock>
 __device__ SweepRed<T> sweep_lane(const SweepConsts<T>& P, int64_t lane,
                                   const Cand<T, WITH_DIRECTION>& c,
                                   const Ref<T>& o, const Ref<T>* mr,
@@ -280,6 +373,7 @@ __device__ SweepRed<T> sweep_lane(const SweepConsts<T>& P, int64_t lane,
     gq[idx] = -o(PX, idx);
   }
   __syncthreads();
+  Clk::lap(kSlotLprimeS2);
 
   // ---- S1 backward sweep: costates q and feedforward dvec, stage by stage
   // (x1, u1 are the targets held in the z-outputs) ----
@@ -344,6 +438,7 @@ __device__ SweepRed<T> sweep_lane(const SweepConsts<T>& P, int64_t lane,
     }
     __syncthreads();
   }
+  Clk::lap(kSlotBackward);
 
   // ---- S1 forward rollout from x0: u = K x + dvec, x_child = ABK_k x +
   // B_k dvec ----
@@ -376,6 +471,7 @@ __device__ SweepRed<T> sweep_lane(const SweepConsts<T>& P, int64_t lane,
     }
     __syncthreads();
   }
+  Clk::lap(kSlotForward);
 
   // ---- ubar = prox_h*(u + sigma L (2 wbar - w)); first the prox argument
   // p = u1 / sigma with the epigraph shifts, projected at once where the
@@ -459,6 +555,7 @@ __device__ SweepRed<T> sweep_lane(const SweepConsts<T>& P, int64_t lane,
   }
   if constexpr (!WITH_METRIC) return red;
   __syncthreads();
+  Clk::lap(kSlotProx);
 
   // ---- M r for r = (w - wbar, u - ubar), <r, M r>, inf-norms ----
   const Diff<T, Cand<T, WITH_DIRECTION>, Ref<T>> res{c, o};
@@ -486,6 +583,7 @@ __device__ SweepRed<T> sweep_lane(const SweepConsts<T>& P, int64_t lane,
   red.dot = block_sum(dot, sh);
   red.nz = block_max(nz, sh);
   red.nv = block_max(nv, sh);
+  Clk::lap(kSlotMetric);
   if constexpr (!WITH_DIRECTION) return red;
 
   // ---- <r, M d> and the inf-norms of M d, M d never stored ----
@@ -510,6 +608,7 @@ __device__ SweepRed<T> sweep_lane(const SweepConsts<T>& P, int64_t lane,
   red.rho = block_sum(rho, sh);
   red.ndz = block_max(ndz, sh);
   red.ndv = block_max(ndv, sh);
+  Clk::lap(kSlotMetric);
   return red;
 }
 

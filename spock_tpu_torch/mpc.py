@@ -30,8 +30,10 @@ import torch
 
 from .algorithms import cp as cp_alg
 from .algorithms import supermann as sp_alg
+from .ops import spstep, sweep_kernels
 from .problem import ProblemData, ProblemMeta
 from .solver import check_device, zero_dual, zero_primal
+from .utils import profiling
 from .zv import tmap
 
 
@@ -208,8 +210,9 @@ def _live(state, n_steps):
 
 def _check(state, n_steps) -> tuple:
     """(total, live) on the host: the one sync of a chunk."""
-    total, live = torch.stack(
-        [state["total"], _live(state, n_steps).to(torch.int64)]).tolist()
+    with profiling.span("spock.farm.check"):
+        total, live = torch.stack(
+            [state["total"], _live(state, n_steps).to(torch.int64)]).tolist()
     return total, bool(live)
 
 
@@ -223,7 +226,7 @@ def _map(f, *states):
 
 def _counters() -> dict:
     """{(counter holder, key): launches} of every kernel wrapper."""
-    from .ops import cuda_kernels, spstep, sweep_kernels
+    from .ops import cuda_kernels
 
     out = {(cuda_kernels, None): cuda_kernels.LAUNCHES}
     for mod in (spstep, sweep_kernels):
@@ -274,12 +277,15 @@ class _ChunkGraph:
         """One replay from ``state`` (copied into the buffers when
         ``copy_in``); returns the state on the buffers and (total, live)."""
         if copy_in:
-            _map(lambda dst, src: dst.copy_(src), self.static, state)
-            self.ws.copy_(ws)
-            self.n_steps.copy_(n_steps)
-        self.graph.replay()
+            with profiling.span("spock.farm.copy_in"):
+                _map(lambda dst, src: dst.copy_(src), self.static, state)
+                self.ws.copy_(ws)
+                self.n_steps.copy_(n_steps)
+        with profiling.span("spock.farm.replay"):
+            self.graph.replay()
         _add_counts(self.delta)
-        total, live = self.check.tolist()
+        with profiling.span("spock.farm.check"):
+            total, live = self.check.tolist()
         sp = dataclasses.replace(self.static["sp"],
                                  it=state["sp"].it + self.K)
         return dict(self.static, sp=sp), (total, bool(live))
@@ -295,8 +301,6 @@ def _side_stream(device):
 def _warm_up(run, state, n_steps, ws, stream):
     """WARMUP_ITERS eager iterations of a copy of the farm on ``stream``,
     whose results, launch counts and retrial counts are thrown away."""
-    from .ops import spstep
-
     before = _counters()
     retrials = {d: a.clone() for d, a in spstep.RETRIALS.items()}
     stream.wait_stream(torch.cuda.current_stream(ws.device))
@@ -324,6 +328,25 @@ def _graphs_for(key, data):
     return farm
 
 
+def _capture(farm, run, state, n_steps, ws, K, stream, keep, stats):
+    """The graph of K farm iterations from ``state``'s history phase, with
+    the farm's throwaway warm-up before its first capture; adds to the
+    call's ``stats``."""
+    if not farm["warm"]:
+        with profiling.span("spock.farm.warmup"):
+            t0 = time.perf_counter()
+            _warm_up(run, state, n_steps, ws, stream)
+            stats["warmup_s"] += time.perf_counter() - t0
+        farm["warm"] = True
+    with profiling.span("spock.farm.capture"):
+        g = _ChunkGraph(run, state, n_steps, ws, K, farm["pool"], stream,
+                        keep)
+    stats["captures"] += 1
+    stats["capture_s"] += g.capture_s
+    return g
+
+
+@profiling.spanned("spock.farm.call")
 def simulate_async(
     data: ProblemData,
     meta: ProblemMeta,
@@ -370,6 +393,9 @@ def simulate_async(
     if iters_per_launch < 0:
         raise ValueError(f"iters_per_launch={iters_per_launch} < 0")
     fused = sp_alg.use_fused_step(data, meta, opts, fused_sweep, fused_step)
+    # the step kernels time their phases while a profiler records (graphs
+    # read the flag at each replay)
+    spstep.set_phase_timing(device, profiling.recording())
     if resume is None:
         if z0 is None:
             z0 = zero_primal(meta, (B,), dtype, device)
@@ -403,8 +429,6 @@ def simulate_async(
                  chunks=0, eager_chunks=0, executed=0, captures=0,
                  capture_s=0.0, warmup_s=0.0)
     if graphed:
-        from .ops import spstep, sweep_kernels
-
         farm = _graphs_for((id(data), B, T, float(tol), opts, K, dtype,
                             device), data)
         stream = _side_stream(device)
@@ -412,35 +436,31 @@ def simulate_async(
     total, on_static = total0, None
     while live and total < max_total_iters:
         n = min(K, max_total_iters - total)
-        if graphed and n == K:
-            phase = state["sp"].it % 3
-            g = farm["by_phase"].get(phase)
-            if g is None:
-                if not farm["warm"]:
-                    t0 = time.perf_counter()
-                    _warm_up(run, state, n_steps_t, ws, stream)
-                    stats["warmup_s"] += time.perf_counter() - t0
-                    farm["warm"] = True
-                keep = (bodies, sweep_kernels._consts(data, meta),
-                        spstep.retrial_counts(device))
-                g = farm["by_phase"][phase] = _ChunkGraph(
-                    run, state, n_steps_t, ws, K, farm["pool"], stream, keep)
-                stats["captures"] += 1
-                stats["capture_s"] += g.capture_s
-            state, (total, live) = g.replay(state, ws, n_steps_t,
-                                            copy_in=on_static is not g)
-            on_static = g
-            stats["chunks"] += 1
-        else:
-            _, state = _simulate_async_chunk(data, meta, ws, n_steps_t, opts,
-                                             n, state, bodies, fused)
-            total, live = _check(state, n_steps_t)
-            on_static = None
-            stats["eager_chunks"] += 1
+        with profiling.span("spock.farm.chunk"):
+            if graphed and n == K:
+                phase = state["sp"].it % 3
+                g = farm["by_phase"].get(phase)
+                if g is None:
+                    keep = (bodies, sweep_kernels._consts(data, meta),
+                            spstep.retrial_counts(device))
+                    g = farm["by_phase"][phase] = _capture(
+                        farm, run, state, n_steps_t, ws, K, stream, keep,
+                        stats)
+                state, (total, live) = g.replay(state, ws, n_steps_t,
+                                                copy_in=on_static is not g)
+                on_static = g
+                stats["chunks"] += 1
+            else:
+                _, state = _simulate_async_chunk(
+                    data, meta, ws, n_steps_t, opts, n, state, bodies, fused)
+                total, live = _check(state, n_steps_t)
+                on_static = None
+                stats["eager_chunks"] += 1
         stats["executed"] += n
     if on_static is not None:
         # later replays rewrite the buffers: the result owns its tensors
-        state = _map(torch.clone, state)
+        with profiling.span("spock.farm.clone_out"):
+            state = _map(torch.clone, state)
     stats["counted"] = total - total0
     stats["wasted"] = stats["executed"] - stats["counted"]
     return _result(state, total, stats)

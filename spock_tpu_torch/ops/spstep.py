@@ -42,7 +42,10 @@ or raise.  ``LAUNCHES`` counts the kernel launches of each, and of
 csrc/sp_step.cu by body (``sp_step_node_body``, ``sp_step_element_body``:
 both wrappers' launches), and
 ``RETRIALS`` holds, per device, the lanes that backtracked and the trials
-they made, summed on the device (``retrials`` reads them).
+they made, summed on the device (``retrials`` reads them), and the step
+kernels' phase clock: while its flag is on (``set_phase_timing``), thread 0
+of every block adds the ``clock64`` cycles of each part of the block's
+work to the slots of ``PHASES`` (``phase_cycles`` reads them).
 """
 
 from __future__ import annotations
@@ -55,14 +58,30 @@ from typing import Any
 import torch
 
 from ..problem import ProblemData, ProblemMeta
+from ..utils import profiling
 from . import _build, sweep_kernels
 
 LAUNCHES = {"sp_step_fused": 0, "sp_step_backtrack": 0,
             "sp_step_node_body": 0, "sp_step_element_body": 0}
-# device -> int64 [2]: the lanes that backtracked and the trials they made,
-# added to by the backtrack (on the card by its kernel, with atomics); made
-# once per device and zeroed in place (a CUDA graph holds its address)
+# The cycle slots of the phase clock (csrc/sp_step.cu's kSlot*), summed over
+# the blocks of every launch while the clock is on: the five parts of a
+# sweep (every sweep a launch runs: fresh, candidate, each trial), phase 2
+# (the Anderson pass), phase 4 and each trial's commit, and a block's cycles
+# from its first statement to its last.
+PHASES = ("lprime_s2", "riccati_backward", "riccati_forward", "prox_hconj",
+          "metric", "anderson", "commit", "block_total")
+# device -> int64 [3 + len(PHASES)], made once per device and zeroed in
+# place (a CUDA graph holds its address): [0:2] the lanes that backtracked
+# and the trials they made, added to by the backtrack (on the card by its
+# kernel, with atomics); [2] the phase clock's flag; [3:] its cycle slots,
+# added to by both step kernels while the flag is on
 RETRIALS: dict = {}
+_FLAG = 2
+# bytes of the phase clock's words at the end of a step kernel's dynamic
+# shared memory (csrc/sweep_body.cuh's kClockBytes)
+CLOCK_BYTES = 96
+# device -> the phase clock's flag as last written (no read of the card)
+_TIMING: dict = {}
 
 # scalar-pack slots (pallas_spstep.py's _SC_*)
 SC_ACTIVE, SC_VALID1, SC_VALID2, SC_CACHE = 0, 1, 2, 3
@@ -90,9 +109,10 @@ _ARGTYPES = {
 
 
 def retrial_counts(device) -> torch.Tensor:
-    """The int64 [2] counter of ``device`` (lanes that backtracked, trials
-    made), made zero on first use.  Raises if that use is inside a CUDA
-    graph capture: the counter must outlive every graph that adds to it."""
+    """The counter of ``device`` (lanes that backtracked, trials made, the
+    phase clock's flag and cycles), made zero on first use.  Raises if that
+    use is inside a CUDA graph capture: the counter must outlive every graph
+    that adds to it."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -101,8 +121,9 @@ def retrial_counts(device) -> torch.Tensor:
         if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
             raise RuntimeError("the retrial counter of a device is made "
                                "outside a CUDA graph capture")
-        acc = RETRIALS[device] = torch.zeros(2, dtype=torch.int64,
-                                             device=device)
+        acc = RETRIALS[device] = torch.zeros(3 + len(PHASES),
+                                             dtype=torch.int64, device=device)
+        _TIMING[device] = False
     return acc
 
 
@@ -111,16 +132,50 @@ def retrials() -> tuple:
     the last ``reset_retrials``; reads the counters (a host sync)."""
     tot = [0, 0]
     for acc in RETRIALS.values():
-        lanes, trials = acc.tolist()
+        lanes, trials = acc[:_FLAG].tolist()
         tot[0] += lanes
         tot[1] += trials
     return tuple(tot)
 
 
 def reset_retrials() -> None:
-    """Zero every device's counter in place."""
+    """Zero every device's retrials and phase cycles in place (the phase
+    clock's flag stays)."""
     for acc in RETRIALS.values():
-        acc.zero_()
+        acc[:_FLAG].zero_()
+        acc[_FLAG + 1:].zero_()
+
+
+def set_phase_timing(device, on: bool) -> None:
+    """Turn the phase clock of ``device``'s step kernels on or off: a write
+    on the device's stream where the flag changes, read by every later
+    launch (and by the launches of graphs captured before).  Each launch of
+    the wrappers sets it to whether a profiler records; a farm of graphs
+    sets it before its replays.  No-op for the CPU and inside a CUDA graph
+    capture (a graph must not write the flag)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return
+    acc = retrial_counts(device)
+    device = acc.device
+    if (_TIMING[device] != bool(on)
+            and not torch.cuda.is_current_stream_capturing()):
+        acc[_FLAG].fill_(int(bool(on)))
+        _TIMING[device] = bool(on)
+
+
+def phase_cycles():
+    """{slot of ``PHASES``: cycles} summed over the cards' counters since
+    the last ``reset_retrials`` (a host sync); None without a card's
+    counter."""
+    cards = [acc for d, acc in RETRIALS.items() if d.type == "cuda"]
+    if not cards:
+        return None
+    tot = [0] * len(PHASES)
+    for acc in cards:
+        for k, v in enumerate(acc[_FLAG + 1:].tolist()):
+            tot[k] += v
+    return dict(zip(PHASES, tot))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,11 +204,14 @@ def supported(meta: ProblemMeta, data: ProblemData) -> bool:
 def step_body(meta: ProblemMeta, data: ProblemData, dtype) -> str:
     """The instance of csrc/sp_step.cu that runs the problem, by its class
     (the rule of ``sweep_kernels.sweep_body``): ``"node"`` where the node
-    body's shared-memory plan fits, ``"element"`` otherwise.  Raises on a
-    problem outside the step kernels' class."""
+    body's shared-memory plan fits with the phase clock's words,
+    ``"element"`` otherwise.  Raises on a problem outside the step kernels'
+    class."""
     if not supported(meta, data):
         raise ValueError("step kernels: unsupported problem class")
-    return sweep_kernels.sweep_body(meta, data, dtype)
+    plan = sweep_kernels.node_plan(meta, data, torch.finfo(dtype).bits // 8,
+                                   tail=CLOCK_BYTES)
+    return sweep_kernels.ELEMENT if plan is None else sweep_kernels.NODE
 
 
 def _decide(pair, zbar, d, wbar, tau, act, rn, nmz, nmv, r_safe, q_pow,
@@ -371,6 +429,10 @@ def _launch(name, entry, dtype, device, ptr, data, meta, coefs, body, count,
     """Launch the ``body`` instance of ``entry`` of csrc/sp_step.cu on
     ``count`` blocks (``extra``: its int arguments after the count); raise
     on a CUDA error."""
+    on = profiling.recording()
+    if _TIMING.get(device) != on:
+        # the phase clock times the launches a profiler records, and no other
+        set_phase_timing(device, on)
     ptrs = (ctypes.c_void_p * len(ptr))(*ptr)
     dims = sweep_kernels._dims(data, meta, True)
     cf = (ctypes.c_double * len(coefs))(*(float(c) for c in coefs))
@@ -451,7 +513,9 @@ def sp_step_fused(data: ProblemData, meta: ProblemMeta, z, v, cache, r_prev,
            + [sweep_kernels._ptr(a) for pair in outs for a in pair]
            + [x0.data_ptr(), scal.data_ptr(), oscal.data_ptr(),
               kscal.data_ptr()]
-           + [sweep_kernels._ptr(a) for a in scratch + consts + elem])
+           + [sweep_kernels._ptr(a) for a in scratch]
+           + [retrial_counts(device).data_ptr()]
+           + [sweep_kernels._ptr(a) for a in consts + elem])
     _launch(name, "sp_step", dtype, device, ptr, data, meta,
             (gamma, sigma, c1, sigma_k2, lam, lam_sp), body, B)
     res = tuple(sweep_kernels._pair(o) for o in outs)
@@ -480,7 +544,7 @@ def sp_step_backtrack(data: ProblemData, meta: ProblemMeta, z, v,
         out, trials = sp_backtrack_ref(
             data, meta, z, v, keep, x0, scal, oscal, z_new, s, gamma, sigma,
             beta, max_backtracks, c1, sigma_k2, lam, lam_sp)
-        retrial_counts(oscal.device).add_(torch.stack(
+        retrial_counts(oscal.device)[:_FLAG].add_(torch.stack(
             [(trials > 0).sum(), trials.sum()]))
         return out
     if not supported(meta, data):

@@ -135,9 +135,11 @@ def metric_plan(meta: ProblemMeta, data: ProblemData, itemsize: int):
     return dict(bytes=nbytes)
 
 
-def node_plan(meta: ProblemMeta, data: ProblemData, itemsize: int):
+def node_plan(meta: ProblemMeta, data: ProblemData, itemsize: int,
+              tail: int = 0):
     """The node body's shared-memory plan for values of ``itemsize`` bytes,
-    as csrc/step_body.cuh's ``node_fits`` and ``plan_smem`` make it:
+    with ``tail`` bytes more at its end (the step kernels' phase clock), as
+    csrc/step_body.cuh's ``node_fits`` and ``plan_smem`` make it:
     {bytes, costates_in_shared_memory, riccati_groups, costate_values} per
     block (costate_values per lane), or None where the node body does not
     take the problem.  Uniform matrices are staged, per-node ones are not;
@@ -164,8 +166,8 @@ def node_plan(meta: ProblemMeta, data: ProblemData, itemsize: int):
         while cmax >= (16 if q_shared else 1):
             work = qsize if q_shared and qsize > red else red
             total = o + cmax * xch_node + work
-            if total * itemsize <= SMEM_LIMIT:
-                return dict(bytes=total * itemsize,
+            if total * itemsize + tail <= SMEM_LIMIT:
+                return dict(bytes=total * itemsize + tail,
                             costates_in_shared_memory=q_shared,
                             riccati_groups=cmax, costate_values=qsize)
             cmax //= 2

@@ -20,6 +20,7 @@ from .algorithms import cp as cp_alg
 from .algorithms import supermann as sp_alg
 from .algorithms.common import SolveResult
 from .problem import ProblemData, ProblemMeta, resolve_device
+from .utils import profiling
 from .zv import Dual, Primal, tmap
 
 
@@ -107,6 +108,7 @@ class Solver:
     def dtype(self):
         return self.data.dtype
 
+    @profiling.spanned("spock.solve")
     def solve(self, x0, z0: Optional[Primal] = None, v0: Optional[Dual] = None,
               tol: float = 1e-3) -> SolveResult:
         """x0: [nx] or [B, nx].  Returns a batched SolveResult ([B] lanes;

@@ -353,9 +353,13 @@ def test_node_plan_matches_the_kernel_planner_on_the_card():
                                  int(plan["costates_in_shared_memory"]),
                                  plan["riccati_groups"],
                                  plan["costate_values"]]
-    # the step kernels' planner is the same function
+    # the step kernels' planner is the same function, with the phase
+    # clock's words at the end of the block's dynamic shared memory
     data, meta = cases[0]
-    assert spstep.smem_plan(data, meta, torch.float32)["bytes"] == 138672
+    plan = spstep.smem_plan(data, meta, torch.float32)
+    assert plan["bytes"] == 138672 + spstep.CLOCK_BYTES
+    assert plan["bytes"] == sweep_kernels.node_plan(
+        meta, data, 4, tail=spstep.CLOCK_BYTES)["bytes"]
 
 
 @pytest.mark.cuda

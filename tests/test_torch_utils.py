@@ -103,9 +103,6 @@ def test_checkpoint_loads_across_packages(problem, tmp_path, writer):
 
 def test_profiling_helpers(tmp_path):
     x = torch.ones(64, 64, dtype=torch.float64)
-    with profiling.Timer() as t:
-        t.block(x @ x)
-    assert t.elapsed > 0 and t.device_ms is None  # no card here
     assert profiling.time_fn(lambda a: a @ a, x, iters=3) > 0
     with profiling.trace(tmp_path) as prof:
         x @ x
